@@ -1,0 +1,287 @@
+"""Headless CLI batch mode of the port (paintfe_tpu.cli counterpart).
+
+Behavioral contract: src/cli.rs — the same flags, glob resolve/dedup,
+per-file load -> script -> encode, format inference, collision-safe `_out`
+suffix, and exit code 0 when every input is OK, 1 otherwise, with
+keep-going semantics.  `--device {cuda,cpu}` picks the torch device the
+device-side ops run on; `cuda` with no card is an error, never a silent
+run on the CPU.  `--shard` runs the traced op chain over shape-bucketed
+batches on that device (parallel/batch.py).
+
+Not yet ported (each reports so per input, rc 1): layered .pfe/.pdn
+documents, 16-bit inputs, .pfe output, --animate and --trace-dir, and a
+multi-host launch (PAINTFE_COORDINATOR).
+
+    python -m paintfe_tpu_torch.cli -i 'shots/*.png' -s fx.rhai \\
+        --output-dir out -f png --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob as globlib
+import os
+import pathlib
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from paintfe_tpu.io import codecs
+from paintfe_tpu_torch.core.canvas import canonicalize_tiles, clamp_dimensions
+from paintfe_tpu_torch.scripting import ScriptError, execute_script_sync
+
+
+class NotYetPorted(Exception):
+    """An input or option whose code path is not yet ported."""
+
+
+# per-file keep-going: every error class an input file can produce
+_INPUT_ERRORS = (codecs.CodecError, NotYetPorted, ScriptError, OSError,
+                 ValueError)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="paintfe-tpu-torch",
+        description="PaintFE-compatible headless batch processor (PyTorch + CUDA)",
+    )
+    p.add_argument("-i", "--input", nargs="+", action="extend", required=True,
+                   help="input file(s); glob patterns accepted; the flag "
+                        "may be repeated (cli.rs:43-48 semantics)")
+    p.add_argument("-s", "--script", metavar="SCRIPT.rhai",
+                   help="script to execute on each input image")
+    p.add_argument("-o", "--output", metavar="FILE",
+                   help="output path (single-file input only)")
+    p.add_argument("--output-dir", metavar="DIR",
+                   help="output directory for batch processing")
+    p.add_argument("-f", "--format",
+                   help="png, jpeg, webp, bmp, tga, ico, tiff, gif, pfe")
+    p.add_argument("-q", "--quality", type=int, default=90, metavar="1-100")
+    p.add_argument("--webp-lossy", action="store_true",
+                   help="write WebP lossily using --quality")
+    p.add_argument("--tiff-compression", default="none",
+                   choices=["none", "lzw", "deflate"])
+    p.add_argument("--flatten", action=argparse.BooleanOptionalAction, default=True,
+                   help="flatten visible layers before saving")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--profile", action="store_true",
+                   help="print per-stage timings (load/script/encode)")
+    p.add_argument("--trace-dir", metavar="DIR",
+                   help="write a profiler trace of the run to DIR (not yet ported)")
+    p.add_argument("--shard", action="store_true",
+                   help="run the batch as shape-bucketed batches on the device")
+    p.add_argument("--animate", metavar="OUT",
+                   help="combine all processed inputs into one animation "
+                        "(not yet ported)")
+    p.add_argument("--fps", type=float, default=10.0,
+                   help="frame rate for --animate (default 10)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="torch device for the device-side ops (default cuda)")
+    return p
+
+
+def resolve_inputs(patterns: List[str]) -> List[pathlib.Path]:
+    """Literal paths first, else glob expansion; ordered, deduplicated."""
+    result: List[pathlib.Path] = []
+    for pattern in patterns:
+        as_path = pathlib.Path(pattern)
+        if as_path.exists():
+            if as_path not in result:
+                result.append(as_path)
+            continue
+        matches = sorted(globlib.glob(pattern))
+        if not matches:
+            print(f"warning: pattern '{pattern}' matched no files.", file=sys.stderr)
+        for m in matches:
+            mp = pathlib.Path(m)
+            if mp not in result:
+                result.append(mp)
+    return result
+
+
+_EXT_FORMATS = {
+    "jpg": "jpeg", "jpeg": "jpeg", "webp": "webp", "bmp": "bmp", "tga": "tga",
+    "ico": "ico", "tiff": "tiff", "tif": "tiff", "gif": "gif", "pfe": "pfe",
+}
+
+
+def parse_format(format_arg: Optional[str], output: Optional[str]) -> str:
+    if format_arg:
+        return _EXT_FORMATS.get(format_arg.lower(), "png")
+    if output:
+        ext = pathlib.Path(output).suffix.lower().lstrip(".")
+        return _EXT_FORMATS.get(ext, "png")
+    return "png"
+
+
+def build_output_path(input_path: pathlib.Path, output: Optional[str],
+                      output_dir: Optional[str], fmt: str) -> pathlib.Path:
+    if output:
+        return pathlib.Path(output)
+    ext = codecs.format_extension(fmt)
+    stem = input_path.stem
+    if output_dir:
+        return pathlib.Path(output_dir) / f"{stem}.{ext}"
+    parent = input_path.parent
+    candidate = parent / f"{stem}.{ext}"
+    if candidate == input_path:
+        return parent / f"{stem}_out.{ext}"
+    return candidate
+
+
+def _is_deep(path: pathlib.Path) -> bool:
+    """16-bit PNG or 16/32-bit TIFF: the JAX package keeps their deep
+    payload (io/deep_export.py), which the port does not yet."""
+    suffix = path.suffix.lower()
+    try:
+        if suffix == ".png":
+            with open(path, "rb") as fh:
+                head = fh.read(33)
+            return len(head) >= 33 and head[24] == 16  # IHDR bit depth
+        if suffix in (".tif", ".tiff"):
+            from PIL import Image
+
+            with Image.open(path) as im:
+                bits = im.tag_v2.get(258, (8,))
+            return max(bits if isinstance(bits, tuple) else (bits,)) > 8
+    except (OSError, SyntaxError, ValueError):
+        return False  # undecodable: the codec reports it
+    return False
+
+
+def load_image(path) -> np.ndarray:
+    """Decode one single-layer raster input as RGBA u8 [H, W, 4]."""
+    path = pathlib.Path(path)
+    if path.suffix.lower() in (".pfe", ".pdn"):
+        raise NotYetPorted(f"{path.suffix.lower()} input '{path}' is not yet "
+                           "ported to paintfe_tpu_torch")
+    if _is_deep(path):
+        raise NotYetPorted(f"16-bit input '{path}' is not yet ported to "
+                           "paintfe_tpu_torch")
+    return codecs.load_image(path)
+
+
+def run_one(input_path: pathlib.Path, output_path: pathlib.Path,
+            script_source: Optional[str], fmt: str, quality: int,
+            webp_lossless: bool, tiff_compression: str, flatten: bool,
+            verbose: bool, timer=None, device="cpu"):
+    from paintfe_tpu_torch.utils.profiling import StageTimer
+
+    if timer is None:
+        timer = StageTimer(device)
+    if fmt == "pfe":
+        raise NotYetPorted(".pfe output is not yet ported to paintfe_tpu_torch")
+    with timer.stage("load"):
+        img = load_image(input_path)
+        w, h = clamp_dimensions(img.shape[1], img.shape[0])
+        img = img[:h, :w]
+
+    if script_source is not None:
+        with timer.stage("script"):
+            result, new_w, new_h, console, _canvas_ops = execute_script_sync(
+                script_source, img, w, h, None, device=device)
+        if verbose:
+            for line in console:
+                print(f"  [script] {line}")
+        # the layer-commit invariant (canvas.py); canvas ops only replay on
+        # other layers, and a raster input has one
+        img = canonicalize_tiles(np.asarray(result, np.uint8).reshape(new_h, new_w, 4))
+
+    with timer.stage("encode"):
+        codecs.save_image(img, output_path, fmt, quality=quality,
+                          webp_lossless=webp_lossless,
+                          tiff_compression=tiff_compression)
+
+
+def _unported_option(args) -> Optional[str]:
+    if args.animate:
+        return "--animate"
+    if args.trace_dir:
+        return "--trace-dir"
+    return None
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda, but no CUDA device is available "
+              "(pass --device cpu to run on the CPU)", file=sys.stderr)
+        return 1
+
+    inputs = resolve_inputs(args.input)
+    if not inputs:
+        print("error: no input files matched the given pattern(s).", file=sys.stderr)
+        return 1
+    if len(inputs) > 1 and args.output and not args.output_dir:
+        print(
+            f"error: {len(inputs)} input files given but --output only accepts a "
+            "single file path.\nUse --output-dir for batch processing.",
+            file=sys.stderr,
+        )
+        return 1
+
+    fmt = parse_format(args.format, args.output)
+
+    script_source = None
+    if args.script:
+        try:
+            script_source = pathlib.Path(args.script).read_text()
+        except OSError as e:
+            print(f"error: could not read script '{args.script}': {e}", file=sys.stderr)
+            return 1
+
+    if args.output_dir:
+        pathlib.Path(args.output_dir).mkdir(parents=True, exist_ok=True)
+
+    unported = _unported_option(args)
+    if unported:
+        for input_path in inputs:
+            print(f"  error: {input_path}: {unported} is not yet ported to "
+                  "paintfe_tpu_torch", file=sys.stderr)
+        return 1
+
+    if os.environ.get("PAINTFE_COORDINATOR"):
+        print("error: multi-host batch (PAINTFE_COORDINATOR) is not yet ported "
+              "to paintfe_tpu_torch", file=sys.stderr)
+        return 1
+    if args.shard:
+        from paintfe_tpu_torch.parallel.batch import run_sharded_batch
+
+        return run_sharded_batch(inputs, args, fmt, script_source)
+
+    from paintfe_tpu_torch.utils.profiling import StageTimer
+
+    total = len(inputs)
+    multi = total > 1
+    any_failure = False
+    for i, input_path in enumerate(inputs):
+        if multi or args.verbose:
+            print(f"[{i + 1}/{total}] {input_path}")
+        t0 = time.time()
+        output_path = build_output_path(input_path, args.output,
+                                        args.output_dir, fmt)
+        timer = StageTimer(args.device) if args.profile else None
+        try:
+            run_one(
+                input_path, output_path, script_source, fmt, args.quality,
+                not args.webp_lossy, args.tiff_compression, args.flatten,
+                args.verbose, timer=timer, device=args.device,
+            )
+            if args.verbose or multi:
+                print(f"  -> {output_path} ({(time.time() - t0) * 1000:.0f}ms)")
+            if timer is not None:
+                print(timer.report())
+        except _INPUT_ERRORS as e:
+            msg = e
+            if isinstance(e, ScriptError):
+                msg = f"script error: {e}"
+            print(f"  error: {msg}", file=sys.stderr)
+            any_failure = True
+    return 1 if any_failure else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,223 @@
+"""Effect pipelines: a script's apply_* chain, traced once and run over a
+batch on one device (paintfe_tpu.parallel.pipeline counterpart).
+
+Scripts that never read individual pixels are pure op chains: record the
+op sequence once, compose it into one image->image function, and run it
+on a [N, H, W, 4] batch tensor (the batch dimension is written out; the
+JAX package vmaps).  Ops not yet ported are absent from _OP_TABLE, so a
+trace that meets one bails with NotVectorizable, exactly like the JAX
+package's unrecorded names, and the per-image path reports the gap.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from paintfe_tpu_torch.ops import filters
+from paintfe_tpu_torch.ops import transform as tfm
+
+f32 = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineOp:
+    name: str
+    params: tuple
+
+
+class NotVectorizable(Exception):
+    """Raised when a script touches pixels directly and must run per-image."""
+
+
+def _sepia_device(img, strength=None):
+    """Script-sepia (truncating cast) on device (scripting.rs:900-938)."""
+    f = img.float()
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    sr = torch.clamp(r * 0.393 + g * 0.769 + b * 0.189, max=255.0)
+    sg = torch.clamp(r * 0.349 + g * 0.686 + b * 0.168, max=255.0)
+    sb = torch.clamp(r * 0.272 + g * 0.534 + b * 0.131, max=255.0)
+    if strength is not None:
+        s = f32(np.clip(strength, 0.0, 1.0))
+        inv, s = float(f32(1.0) - s), float(s)
+        sr, sg, sb = r * inv + sr * s, g * inv + sg * s, b * inv + sb * s
+    out = torch.stack([sr, sg, sb], dim=-1).to(torch.uint8)
+    return torch.cat([out, img[..., 3:4]], dim=-1)
+
+
+def bc_factor(contrast) -> np.float32:
+    """The brightness/contrast gain, in f32 (scripting.rs:963-993)."""
+    c = f32(contrast)
+    return (f32(259.0) * (c + f32(255.0))) / (f32(255.0) * (f32(259.0) - c))
+
+
+def _bc_device(img, brightness, contrast):
+    factor = float(bc_factor(contrast))
+    f = img[..., 0:3].float()
+    rgb = torch.clamp(factor * (f + float(f32(brightness)) - 128.0) + 128.0,
+                      0.0, 255.0)
+    return torch.cat([rgb.to(torch.uint8), img[..., 3:4]], dim=-1)
+
+
+def levels_lut(black, white, gamma) -> np.ndarray:
+    """Script-levels as a 256-entry u8 table (scripting.rs:1054-1075): f32
+    math with the power correctly rounded to f32.
+
+    Levels only ever sees integer inputs, so the table is exact, where an
+    in-kernel powf would not be correctly rounded.  The power is an f64
+    libm pow rounded once to f32: numpy's f32 array power takes a SIMD
+    path on AVX-512 hosts that is 1 ulp off on some inputs (0.36 ** 0.5),
+    which would make the table depend on the host."""
+    in_black = f32(black)
+    in_range = np.maximum(f32(white) - in_black, f32(1.0))
+    inv_gamma = float(f32(1.0) / np.maximum(f32(gamma), f32(0.01)))
+    i = np.arange(256, dtype=f32)
+    normalized = np.clip((i - in_black) / in_range, 0.0, 1.0)
+    powed = np.array([math.pow(float(x), inv_gamma) for x in normalized], f32)
+    return np.clip(powed * f32(255.0), 0.0, 255.0).astype(np.uint8)
+
+
+def _levels_device(img, black, white, gamma):
+    lut = torch.from_numpy(levels_lut(black, white, gamma)).to(img.device)
+    return torch.cat([lut[img[..., 0:3].long()], img[..., 3:4]], dim=-1)
+
+
+def _invert_device(img):
+    return torch.cat([255 - img[..., 0:3], img[..., 3:4]], dim=-1)
+
+
+# op name -> fn(img, *params) -> img, on u8 [..., H, W, 4] tensors
+_OP_TABLE = {
+    "apply_blur": lambda img, sigma: filters.gaussian_blur(img, sigma),
+    "apply_invert": _invert_device,
+    "apply_sepia": lambda img, *s: _sepia_device(img, *s),
+    "apply_brightness_contrast": lambda img, b, c: _bc_device(img, b, c),
+    "apply_levels": lambda img, b, w, g: _levels_device(img, b, w, g),
+    "flip_horizontal": tfm.flip_horizontal,
+    "flip_vertical": tfm.flip_vertical,
+    "rotate_180": tfm.rotate_180,
+}
+
+
+# Per-op argument conversion matching the host API's validators exactly,
+# so the traced batch path accepts and rejects the same arguments as the
+# per-image interpreter.
+def _build_arg_specs():
+    from paintfe_tpu_torch.scripting.api import _as_float
+
+    return {
+        "apply_blur": (_as_float,),
+        "apply_sepia": (_as_float,),
+        "apply_brightness_contrast": (_as_float, _as_float),
+        "apply_levels": (_as_float, _as_float, _as_float),
+    }
+
+
+def trace_script(source: str, dims: Optional[Tuple[int, int]] = None
+                 ) -> List[PipelineOp]:
+    """Record a script's op chain by running it against a recording context.
+
+    Only works for scripts that are pure op chains (no pixel reads, no
+    selections, no RNG-dependent flow).  Raises NotVectorizable otherwise.
+
+    `dims` = (width, height) reported by the script's width()/height()
+    calls.  When None, those calls raise NotVectorizable("width"/"height"),
+    and callers re-trace per shape bucket with the bucket's real dims.
+    """
+    import inspect
+
+    from paintfe_tpu_torch.scripting.api import ScriptContext, build_host_fns
+    from paintfe_tpu_torch.scripting.interp import (
+        UNIT, Interpreter, RhaiRuntimeError, _type_of)
+
+    ops: List[PipelineOp] = []
+    ctx = ScriptContext(np.zeros((1, 1, 4), np.uint8), 1, 1, None, rng_seed=0)
+    interp_ref = {}
+    fns = build_host_fns(ctx, interp_ref)
+    arg_specs = _build_arg_specs()
+
+    recorded = {}
+    for name in fns:
+        if name in _OP_TABLE:
+            def make(name=name):
+                spec = arg_specs.get(name)
+
+                def rec(*args, _host_fn=fns[name]):
+                    if spec is not None:
+                        # arity parity with the per-image path: bind
+                        # against the real host fn (apply_sepia() is legal,
+                        # apply_levels(a, b) is not)
+                        try:
+                            inspect.signature(_host_fn).bind(*args)
+                        except TypeError:
+                            sig = ", ".join(_type_of(a) for a in args)
+                            raise RhaiRuntimeError(
+                                f"function not found: {name} ({sig})")
+                        args = tuple(conv(a) for conv, a in zip(spec, args))
+                    else:
+                        args = tuple(
+                            float(a) if isinstance(a, (int, float))
+                            and not isinstance(a, bool) else a for a in args)
+                    ops.append(PipelineOp(name, args))
+                    return UNIT
+                return rec
+            recorded[name] = make()
+        elif name in ("width", "height"):
+            def make_dim(name=name):
+                def dim():
+                    if dims is None:
+                        raise NotVectorizable(name)
+                    return dims[0] if name == "width" else dims[1]
+                return dim
+            recorded[name] = make_dim()
+        elif name in ("print", "print_line", "progress", "sleep", "PI",
+                      "clamp", "clamp_f", "lerp", "distance", "abs", "min", "max",
+                      "floor", "ceil", "round", "sqrt", "pow", "sin", "cos", "tan",
+                      "atan2", "rgb_to_hsl", "hsl_to_rgb"):
+            recorded[name] = fns[name]
+        else:
+            def make_bail(name=name):
+                def bail(*args):
+                    raise NotVectorizable(name)
+                return bail
+            recorded[name] = make_bail(name)
+
+    interp = Interpreter(recorded)
+    interp_ref["interp"] = interp
+    interp.run(source)
+    return ops
+
+
+def from_jax_ops(ops) -> List[PipelineOp]:
+    """The JAX package's PipelineOp list (name plus params tuple) as the
+    port's; raises NotVectorizable for an op the port has not ported."""
+    out = []
+    for op in ops:
+        if op.name not in _OP_TABLE:
+            raise NotVectorizable(op.name)
+        out.append(PipelineOp(op.name, tuple(op.params)))
+    return out
+
+
+def compile_pipeline(ops: Sequence[PipelineOp]) -> Callable:
+    """Compose the op chain into one image->image function."""
+
+    def run(img):
+        for op in ops:
+            img = _OP_TABLE[op.name](img, *op.params)
+        return img
+
+    return run
+
+
+def run_batch(images, ops: Sequence[PipelineOp], device) -> np.ndarray:
+    """Apply an op chain to a u8 [N, H, W, 4] batch (numpy or tensor) on
+    one device; returns the processed batch as a numpy array."""
+    if not isinstance(images, torch.Tensor):
+        images = torch.from_numpy(np.ascontiguousarray(images, np.uint8))
+    batch = images.to(device)
+    return compile_pipeline(ops)(batch).cpu().numpy()

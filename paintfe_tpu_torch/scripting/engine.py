@@ -1,0 +1,137 @@
+"""Public script-execution API (paintfe_tpu.scripting.engine counterpart).
+
+Behavioral contract: scripting.rs:1489-1821 — `compile_script`,
+`execute_script_sync(source, pixels, w, h, mask) -> (pixels, w, h, console,
+canvas_ops)`; ScriptError carries a message plus best-effort line/column.
+`execute_script_sync` takes a torch `device` for the device-side ops.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from paintfe_tpu_torch.scripting.api import CanvasOpRequest, ScriptContext, build_host_fns
+from paintfe_tpu_torch.scripting.interp import Interpreter, RhaiRuntimeError
+from paintfe_tpu_torch.scripting.rhai_ast import RhaiSyntaxError, parse
+
+
+@dataclasses.dataclass
+class ScriptError(Exception):
+    message: str
+    line: Optional[int] = None
+    column: Optional[int] = None
+
+    def __str__(self):
+        loc = f" (line {self.line}, position {self.column})" if self.line else ""
+        return self.message + loc
+
+    def friendly_message(self) -> str:
+        """Categorized human-friendly explanation with tips — the same
+        error-message contract as the reference (scripting.rs:96-200)."""
+        raw = self.message
+        low = raw.lower()
+        parts = []
+        if self.line is not None and self.column is not None:
+            parts.append(f"Error on line {self.line}, column {self.column}:")
+        elif self.line is not None:
+            parts.append(f"Error on line {self.line}:")
+        else:
+            parts.append("Script error:")
+        if "function not found" in low:
+            # reference keeps the full "name (argtypes)" desc, trimming a
+            # trailing " (line N, ..." location only (scripting.rs:115-135)
+            fn_part = raw.split(":", 1)[1] if ":" in raw else ""
+            desc = fn_part.split(" (line ")[0].strip()
+            parts.append(f"  Could not find function: {desc or raw}")
+            name = desc.split("(")[0].strip()
+            if name and (len(name) <= 3
+                         or all(c.islower() or c == "_" for c in name)):
+                parts += [
+                    "",
+                    "  Tip: If this is a closure stored in a variable, use .call() syntax:",
+                    f"    let {name} = |x| {{ x * 2 }};",
+                    f"    {name}.call(42);   // ✓ correct",
+                    f"    {name}(42);        // ✗ won't work",
+                ]
+        elif "variable" in low and "not found" in low:
+            name = raw.split("'")[1] if "'" in raw else ""
+            parts.append(f"  Variable '{name}' is not defined.")
+            parts += ["", "  Tip: Make sure you declared it with 'let' before using it:",
+                      f"    let {name} = 0;"]
+        elif "unsupported rhai feature" in low or "reserved keyword" in low:
+            parts.append(f"  {raw}")
+        elif "operation limit" in low:
+            parts += [
+                "  Script exceeded the maximum operation limit (50 million ops).",
+                "",
+                "  Tip: Your script may have an infinite loop, or is processing",
+                "  too many pixels. Try processing a smaller region with for_region(),",
+                "  or use built-in apply_* functions which run natively.",
+            ]
+        elif "index error" in low or ("index" in low and "out of" in low):
+            parts.append(f"  {raw}")
+            parts += ["", "  Tip: An array index is out of bounds. Check array lengths",
+                      "  with .len() before accessing elements."]
+        elif "expected" in low or "unexpected" in low or "unterminated" in low:
+            parts.append(f"  Syntax error: {raw}")
+            parts += ["", "  Tip: Check for missing semicolons, brackets, or typos "
+                          "near this line."]
+        elif "cancelled" in low:
+            parts.append("  Script was cancelled.")
+        else:
+            parts.append(f"  {raw}")
+        return "\n".join(parts)
+
+
+def compile_script(source: str):
+    """Parse-check a script; raises ScriptError on syntax errors."""
+    try:
+        return parse(source)
+    except RhaiSyntaxError as e:
+        raise ScriptError(e.message, e.line, e.column)
+
+
+def execute_script_sync(
+    source: str,
+    pixels: np.ndarray,
+    width: int,
+    height: int,
+    mask: Optional[np.ndarray] = None,
+    rng_seed: Optional[int] = None,
+    device="cpu",
+) -> Tuple[np.ndarray, int, int, List[str], List[CanvasOpRequest]]:
+    """Run a script synchronously on one layer buffer.
+
+    `pixels` may be flat RGBA bytes or [H, W, 4]; returns the possibly
+    resized buffer plus console output and queued canvas ops.
+    """
+    compile_script(source)  # surface syntax errors first, like engine.compile
+    ctx = ScriptContext(np.asarray(pixels, np.uint8), width, height, mask,
+                        rng_seed, device)
+    interp_ref = {}
+    fns = build_host_fns(ctx, interp_ref)
+    interp = Interpreter(fns)
+    interp_ref["interp"] = interp
+    try:
+        _run_script(interp, source)
+    except RhaiSyntaxError as e:
+        raise ScriptError(e.message, e.line, e.column)
+    except RhaiRuntimeError as e:
+        raise ScriptError(e.message)
+    return ctx.pixels, ctx.width, ctx.height, ctx.console, ctx.canvas_ops
+
+
+def _run_script(interp: Interpreter, source: str):
+    """Run through the Python-bytecode fast path (pycompile) when the
+    script is closure-free; the tree-walker otherwise (it is the semantic
+    oracle and the bulk vectorizer's home — see pycompile.py)."""
+    from paintfe_tpu_torch.scripting.pycompile import try_compile
+
+    runner = try_compile(source)
+    if runner is not None:
+        runner(interp)
+    else:
+        interp.run(source)

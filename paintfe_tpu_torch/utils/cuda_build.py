@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (``paintfe_tpu_torch/csrc``).
+
+nvcc compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface, loaded with ctypes.  The build runs at
+first use, into ``paintfe_tpu_torch/build/`` (git-ignored), under a name
+keyed by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads the library already built.
+
+The flags keep f32 math IEEE: ``-fmad=false`` stops nvcc from contracting
+a multiply and an add into an FMA (the kernels must reproduce the JAX
+package's separately rounded sums), and there is no ``--use_fast_math``, so
+division and sqrtf stay correctly rounded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C entry points: name -> argtypes; each returns cudaGetLastError() as int.
+_SIGNATURES = {
+    "pfe_blur_tiled": (_P, _P, _I, _I, _I, _P, _I, _I, _P),
+    "pfe_blur_split": (_P, _P, _P, _I, _I, _I, _P, _I, _P),
+    "pfe_chain_tiled": (_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P),
+    "pfe_chain_tail": (_P, _P, _P, _I, _I, _P, _P, _P),
+}
+
+# What load_library() did in this process: its seconds (nvcc's build
+# included when the library was not built yet), the library and nvcc's log.
+BUILD_INFO = {"seconds": None, "log": None, "library": None}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> pathlib.Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libpfe_kernels_{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    so = library_path()
+    log = so.with_suffix(".log")
+    t0 = time.perf_counter()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu, _ = _sources()
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(so),
+                      log=str(log) if log.exists() else None)
+    return lib
+
+
+def check(rc: int, what: str):
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: cudaError_t {rc}")

@@ -1,0 +1,33 @@
+"""Quantization helpers matching the reference's u8 semantics.
+
+Effects round half up (``floor(v + 0.5)``, clipped), the compositor
+truncates (a saturating ``as u8``).  Divides are plain IEEE ``/``: the JAX
+package's Newton-refined ``exact_div`` works around the TPU's divide and
+XLA's reciprocal rewrite, neither of which a correctly rounded divide
+needs.  One PyTorch trap remains and is handled by ``ieee_div``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a correctly rounded f32 divide on every device.
+
+    PyTorch's CUDA divide turns a division by a host scalar into a multiply
+    by its reciprocal (1 ulp off for most divisors); a divisor tensor on the
+    same device keeps the true divide."""
+    return x / torch.tensor(c, dtype=torch.float32, device=x.device)
+
+
+def round_u8(x: torch.Tensor) -> torch.Tensor:
+    """Round half up, clamp to [0, 255], cast to u8 (Rust
+    ``v.round().clamp(0, 255) as u8`` for finite v)."""
+    return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0).to(torch.uint8)
+
+
+def trunc_u8(x: torch.Tensor) -> torch.Tensor:
+    """Clamp to [0, 255] then truncate toward zero (Rust saturating
+    ``as u8``)."""
+    return torch.clamp(x, 0.0, 255.0).to(torch.uint8)
