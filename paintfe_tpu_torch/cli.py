@@ -29,8 +29,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from paintfe_tpu.io import codecs
 from paintfe_tpu_torch.core.canvas import canonicalize_tiles, clamp_dimensions
+from paintfe_tpu_torch.io import codecs
 from paintfe_tpu_torch.scripting import ScriptError, execute_script_sync
 
 
@@ -167,9 +167,13 @@ def load_image(path) -> np.ndarray:
 def run_one(input_path: pathlib.Path, output_path: pathlib.Path,
             script_source: Optional[str], fmt: str, quality: int,
             webp_lossless: bool, tiff_compression: str, flatten: bool,
-            verbose: bool, timer=None, device="cpu"):
+            verbose: bool, timer=None, device="cuda"):
+    """Load, script and encode one input on `device` (the card unless the
+    caller passes "cpu"; CUDA with no card raises RuntimeError)."""
+    from paintfe_tpu_torch.utils.device import resolve_device
     from paintfe_tpu_torch.utils.profiling import StageTimer
 
+    device = resolve_device(device)
     if timer is None:
         timer = StageTimer(device)
     if fmt == "pfe":

@@ -12,3 +12,10 @@ def masked(img: torch.Tensor, out: torch.Tensor, mask) -> torch.Tensor:
         return out
     mask = torch.as_tensor(mask, device=img.device)
     return torch.where((mask > 0)[..., None], out, img)
+
+
+def coord_grids(h: int, w: int, device="cpu"):
+    """f32 pixel-coordinate grids (xs [H, W], ys [H, W])."""
+    xs = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
+    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
+    return xs, ys

@@ -1,13 +1,17 @@
-"""The Gaussian blur (paintfe_tpu.ops.filters, Gaussian section).
+"""The Gaussian blur and the median (paintfe_tpu.ops.filters, Gaussian
+and median sections).
 
 Behavioral contract: src/ops/filters.rs — separable Gaussian, kernel
 truncated at ceil(3*sigma), H pass u8->f32, V pass f32->u8 round-half-up,
-f32 sums in reference tap order.  The blur runs through the K-blur kernel
-wrapper (ops/kernels.py), which on a CPU tensor takes its plain version.
+f32 sums in reference tap order; effects/noise.rs — per-channel median of
+the (2r+1)^2 window, edges replicated.  The blur runs through the K-blur
+kernel wrapper and the median through K-median's (ops/kernels.py); on a
+CPU tensor each takes its plain version.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -62,3 +66,49 @@ def gaussian_blur_with_selection(img: torch.Tensor, sigma: float,
     out = img.clone()
     out[y0:y1, x0:x1] = torch.where(sel[..., None], blurred, region)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Median
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _oddeven_merge_network(n: int):
+    """Batcher odd-even mergesort comparator list for n inputs (pairs i<j).
+    O(n log^2 n) compare-exchanges; sorts any input exactly."""
+    # Batcher's construction needs a power-of-two width; pad virtually and
+    # drop comparators that touch the padding (padding sorts as +inf).
+    m = 1
+    while m < n:
+        m *= 2
+    comparators = []
+
+    def merge(lo, nn, step):
+        dbl = step * 2
+        if dbl < nn:
+            merge(lo, nn, dbl)
+            merge(lo + step, nn, dbl)
+            for i in range(lo + step, lo + nn - step, dbl):
+                comparators.append((i, i + step))
+        elif lo + step < lo + nn:
+            comparators.append((lo, lo + step))
+
+    def sort(lo, nn):
+        if nn > 1:
+            mid = nn // 2
+            sort(lo, mid)
+            sort(lo + mid, nn - mid)
+            merge(lo, nn, 1)
+
+    sort(0, m)
+    return [(i, j) for (i, j) in comparators if i < n and j < n]
+
+
+def median(img: torch.Tensor, radius: int, mask=None) -> torch.Tensor:
+    """Per-channel window-sort median (effects/noise.rs:357-411) of u8
+    [H, W, 4] or [B, H, W, 4], r = max(radius, 1); masked-out pixels keep
+    the input.  On the card it always launches K-median."""
+    from paintfe_tpu_torch.ops.kernels import median_kernel
+
+    return _masked(img, median_kernel(img, max(int(radius), 1)), mask)

@@ -1,21 +1,25 @@
-"""K-blur: the fused two-pass Gaussian blur kernel and its plain version.
+"""K-blur and K-median: the fused two-pass Gaussian blur and the window
+median, each a kernel with its plain version.
 
-Counterpart of the blur part of paintfe_tpu/ops/pallas_kernels.py
-(gaussian_blur_fused / gaussian_blur_fused_planar).  The kernel is
-hand-written CUDA for Hopper (csrc/gaussian_blur.cu); `gaussian_blur_plain`
-is the same computation in plain torch ops (the JAX package's
-_gaussian_fn, filters.py:96-114).
+Counterparts of paintfe_tpu/ops/pallas_kernels.py's gaussian_blur_fused /
+gaussian_blur_fused_planar and median_pallas.  The kernels are hand-written
+CUDA for Hopper (csrc/gaussian_blur.cu, csrc/median.cu);
+`gaussian_blur_plain` and `median_plain` are the same computations in plain
+torch ops (the JAX package's _gaussian_fn, filters.py:96-114, and its
+Batcher network, filters.py:433-454).
 
-`gaussian_blur_fused` launches the kernel for a CUDA tensor and takes the
-plain version for a CPU tensor; every other case raises.  It counts its
-launches in `gaussian_blur_fused.launches`.
+`gaussian_blur_fused` and `median_kernel` launch their kernel for a CUDA
+tensor and take the plain version for a CPU tensor; every other case
+raises.  Each counts its launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from paintfe_tpu_torch.ops.filters import gaussian_kernel
+from paintfe_tpu_torch.ops.filters import _oddeven_merge_network, gaussian_kernel
 from paintfe_tpu_torch.utils.quant import round_u8
 
 # Tile geometry: TILE_W is csrc/blur_tile.cuh's kTileW.
@@ -112,3 +116,94 @@ def gaussian_blur_fused_planar(planar: torch.Tensor, h: int, w: int,
     """Blur a channel-planar u8 [4, H, W] image; returns planar [4, H, W]."""
     img = planar[:, :h, :w].permute(1, 2, 0).contiguous()
     return gaussian_blur_fused(img, sigma).permute(2, 0, 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K-median
+# ---------------------------------------------------------------------------
+
+# csrc/median.cu's output tile: the staged route needs
+# (MEDIAN_TILE + 2r)^2 u32 of shared memory.
+MEDIAN_TILE = 32
+
+
+def median_route(r: int) -> str:
+    """Which route of K-median runs at radius r: "staged" (the tile and its
+    halo in shared memory) or "global" (the window read through L2)."""
+    return "staged" if (MEDIAN_TILE + 2 * r) ** 2 * 4 <= MAX_SMEM else "global"
+
+
+@functools.lru_cache(maxsize=32)
+def _median_layers(k2: int):
+    """The Batcher network for k2 inputs pruned to output k2 // 2 (only the
+    compare-exchanges that can reach the median, as the Pallas kernel's
+    _median_network), grouped into layers of disjoint comparators in
+    network order: each layer is a pair of index lists (lo wires, hi wires)."""
+    live = {k2 // 2}
+    kept = []
+    for a, b in reversed(_oddeven_merge_network(k2)):
+        if a in live or b in live:
+            kept.append((a, b))
+            live.update((a, b))
+    depth = [0] * k2
+    layers = []
+    for a, b in reversed(kept):
+        d = max(depth[a], depth[b])
+        if d == len(layers):
+            layers.append(([], []))
+        layers[d][0].append(a)
+        layers[d][1].append(b)
+        depth[a] = depth[b] = d + 1
+    return layers
+
+
+def median_plain(img: torch.Tensor, r: int) -> torch.Tensor:
+    """Plain torch per-channel median of the (2r+1)^2 window of u8
+    [..., H, W, 4], edges replicated: the (2r+1)^2 edge-clamped shifted
+    views through the Batcher network, one layer of disjoint
+    compare-exchanges at a time."""
+    k = 2 * r + 1
+    h, w = img.shape[-3], img.shape[-2]
+    rows = torch.arange(h, device=img.device)
+    cols = torch.arange(w, device=img.device)
+    taps = torch.stack([
+        img.index_select(-3, torch.clamp(rows + dy, 0, h - 1))
+           .index_select(-2, torch.clamp(cols + dx, 0, w - 1))
+        for dy in range(-r, r + 1) for dx in range(-r, r + 1)])
+    for lo, hi in _median_layers(k * k):
+        lo = torch.tensor(lo, device=img.device)
+        hi = torch.tensor(hi, device=img.device)
+        a, b = taps[lo], taps[hi]
+        taps[lo] = torch.minimum(a, b)
+        taps[hi] = torch.maximum(a, b)
+    return taps[k * k // 2]
+
+
+def median_kernel(img: torch.Tensor, r: int) -> torch.Tensor:
+    """Exact per-channel window median of u8 [H, W, 4] or [B, H, W, 4] at
+    radius r >= 1, edges replicated (K-median)."""
+    r = int(r)
+    if not 1 <= r < 1 << 29:
+        raise ValueError(f"median_kernel: radius {r} out of range")
+    if img.device.type == "cpu":
+        return median_plain(img, r)
+    check_rgba_u8(img, "median_kernel")
+    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+
+    b, h, w = (1, *img.shape[:2]) if img.dim() == 3 else img.shape[:3]
+    if b > 65535:
+        raise ValueError(f"median_kernel: batch {b} exceeds 65535")
+    out = torch.empty_like(img)
+    if b * h * w == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pfe_median(img.data_ptr(), out.data_ptr(), b, h, w, r,
+                            int(median_route(r) == "staged"), stream)
+    check(rc, "median_kernel")
+    median_kernel.launches += 1
+    return out
+
+
+median_kernel.launches = 0

@@ -30,7 +30,7 @@ ENCODE_WINDOW = 16  # in-flight encodes, each holding a full output frame
 def _encode_one(img, output_path, fmt, quality, webp_lossless,
                 tiff_compression):
     """Encode worker (module-level: must pickle for the process pool)."""
-    from paintfe_tpu.io import codecs
+    from paintfe_tpu_torch.io import codecs
 
     try:
         codecs.save_image(img, output_path, fmt, quality=quality,
@@ -69,10 +69,10 @@ def run_sharded_batch(inputs: List[pathlib.Path], args, fmt: str,
                       script_source: Optional[str]) -> int:
     import concurrent.futures
 
-    from paintfe_tpu.parallel.prefetch import prefetch_images
     from paintfe_tpu_torch.cli import build_output_path, load_image
     from paintfe_tpu_torch.parallel.pipeline import (NotVectorizable,
                                                      run_batch, trace_script)
+    from paintfe_tpu_torch.parallel.prefetch import prefetch_images
 
     device = args.device
     ops = []

@@ -20,6 +20,7 @@ import torch
 
 from paintfe_tpu_torch.ops import filters
 from paintfe_tpu_torch.ops import transform as tfm
+from paintfe_tpu_torch.ops.effects import distort
 
 f32 = np.float32
 
@@ -93,6 +94,8 @@ def _invert_device(img):
 # op name -> fn(img, *params) -> img, on u8 [..., H, W, 4] tensors
 _OP_TABLE = {
     "apply_blur": lambda img, sigma: filters.gaussian_blur(img, sigma),
+    "apply_median": lambda img, r: filters.median(img, r),
+    "apply_bulge": lambda img, amount: distort.bulge(img, amount),
     "apply_invert": _invert_device,
     "apply_sepia": lambda img, *s: _sepia_device(img, *s),
     "apply_brightness_contrast": lambda img, b, c: _bc_device(img, b, c),
@@ -107,10 +110,15 @@ _OP_TABLE = {
 # so the traced batch path accepts and rejects the same arguments as the
 # per-image interpreter.
 def _build_arg_specs():
-    from paintfe_tpu_torch.scripting.api import _as_float
+    from paintfe_tpu_torch.scripting.api import _as_float, _as_int
+
+    def int_min1(v):
+        return max(_as_int(v), 1)
 
     return {
         "apply_blur": (_as_float,),
+        "apply_median": (int_min1,),
+        "apply_bulge": (_as_float,),
         "apply_sepia": (_as_float,),
         "apply_brightness_contrast": (_as_float, _as_float),
         "apply_levels": (_as_float, _as_float, _as_float),
@@ -135,7 +143,9 @@ def trace_script(source: str, dims: Optional[Tuple[int, int]] = None
         UNIT, Interpreter, RhaiRuntimeError, _type_of)
 
     ops: List[PipelineOp] = []
-    ctx = ScriptContext(np.zeros((1, 1, 4), np.uint8), 1, 1, None, rng_seed=0)
+    # a recording context: it runs no op, so it needs no card
+    ctx = ScriptContext(np.zeros((1, 1, 4), np.uint8), 1, 1, None, rng_seed=0,
+                        device="cpu")
     interp_ref = {}
     fns = build_host_fns(ctx, interp_ref)
     arg_specs = _build_arg_specs()

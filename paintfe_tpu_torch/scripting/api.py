@@ -4,9 +4,9 @@
 Canvas/pixel access, the apply_* effect functions, layer/canvas transforms
 with CanvasOpRequest replay, utilities (math, RNG, color conversion) and
 the selection API.  The pixel buffer stays a numpy array on the host;
-apply_blur runs on the context's torch device.  Every apply_* whose op
-module is not yet ported stays registered under its name and raises a
-script error saying so.
+apply_blur, apply_median and apply_bulge run on the context's torch
+device.  Every apply_* whose op module is not yet ported stays registered
+under its name and raises a script error saying so.
 
 The script-only pointwise variants (apply_invert, apply_desaturate,
 apply_sepia, apply_brightness_contrast, apply_hsl, apply_exposure,
@@ -27,8 +27,10 @@ import torch
 
 from paintfe_tpu_torch.ops import filters
 from paintfe_tpu_torch.ops import transform as tfm
+from paintfe_tpu_torch.ops.effects import distort
 from paintfe_tpu_torch.parallel.pipeline import levels_lut
 from paintfe_tpu_torch.scripting.interp import UNIT, Closure, RhaiRuntimeError, to_display
+from paintfe_tpu_torch.utils.device import resolve_device
 
 f32 = np.float32
 U64_MASK = (1 << 64) - 1
@@ -285,8 +287,8 @@ def closure_is_pure(cb: Closure, user_fns=frozenset()) -> bool:
 # apply_* (and canvas) functions whose op modules wait for a later port
 NOT_YET_PORTED = (
     "apply_box_blur", "apply_motion_blur", "apply_sharpen",
-    "apply_reduce_noise", "apply_median", "apply_noise", "apply_pixelate",
-    "apply_crystallize", "apply_bulge", "apply_twist", "apply_glow",
+    "apply_reduce_noise", "apply_noise", "apply_pixelate",
+    "apply_crystallize", "apply_twist", "apply_glow",
     "apply_vignette", "apply_halftone", "apply_ink", "apply_oil_painting",
     "resize_image", "resize_canvas",
 )
@@ -301,9 +303,10 @@ def _not_yet_ported(name):
 class ScriptContext:
     def __init__(self, pixels: np.ndarray, width: int, height: int,
                  mask: Optional[np.ndarray], rng_seed: Optional[int] = None,
-                 device="cpu"):
-        # torch device the device-side ops (apply_blur) run on
-        self.device = torch.device(device)
+                 device="cuda"):
+        # torch device the device-side ops (apply_blur, apply_median,
+        # apply_bulge) run on; CUDA with no card raises
+        self.device = resolve_device(device)
         self.pixels = np.asarray(pixels, np.uint8).reshape(height, width, 4).copy()
         self.width = width
         self.height = height
@@ -579,11 +582,23 @@ def build_host_fns(ctx: ScriptContext, interp_ref: dict) -> Dict[str, Any]:
     def _set(img):
         ctx.pixels = np.ascontiguousarray(img, np.uint8)
 
+    def _on_device():
+        return torch.from_numpy(_img()).to(ctx.device)
+
     @register("apply_blur")
     def apply_blur(sigma):
-        img = torch.from_numpy(_img()).to(ctx.device)
         _set(filters.gaussian_blur_with_selection(
-            img, _as_float(sigma), ctx.mask_or_none()).cpu().numpy())
+            _on_device(), _as_float(sigma), ctx.mask_or_none()).cpu().numpy())
+
+    @register("apply_median")
+    def apply_median(r):
+        _set(filters.median(_on_device(), _as_int(r),
+                            ctx.mask_or_none()).cpu().numpy())
+
+    @register("apply_bulge")
+    def apply_bulge(amount):
+        _set(distort.bulge(_on_device(), _as_float(amount), (0.5, 0.5),
+                           ctx.mask_or_none()).cpu().numpy())
 
     for name in NOT_YET_PORTED:
         register(name)(_not_yet_ported(name))

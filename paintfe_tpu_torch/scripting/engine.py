@@ -101,12 +101,14 @@ def execute_script_sync(
     height: int,
     mask: Optional[np.ndarray] = None,
     rng_seed: Optional[int] = None,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[np.ndarray, int, int, List[str], List[CanvasOpRequest]]:
     """Run a script synchronously on one layer buffer.
 
     `pixels` may be flat RGBA bytes or [H, W, 4]; returns the possibly
-    resized buffer plus console output and queued canvas ops.
+    resized buffer plus console output and queued canvas ops.  The
+    device-side ops run on `device`: the card unless the caller passes
+    "cpu"; CUDA with no card raises RuntimeError.
     """
     compile_script(source)  # surface syntax errors first, like engine.compile
     ctx = ScriptContext(np.asarray(pixels, np.uint8), width, height, mask,

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``paintfe_tpu_torch/csrc``).
 
-nvcc compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+nvcc compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, loaded with ctypes.  The build runs at
 first use, into ``paintfe_tpu_torch/build/`` (git-ignored), under a name
 keyed by a hash of the sources and flags, so an edited source rebuilds and
@@ -28,7 +29,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "pfe_blur_split": (_P, _P, _P, _I, _I, _I, _P, _I, _P),
     "pfe_chain_tiled": (_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P),
     "pfe_chain_tail": (_P, _P, _P, _I, _I, _P, _P, _P),
+    "pfe_median": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "pfe_warp_bilinear": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 # What load_library() did in this process: its seconds (nvcc's build
@@ -73,6 +76,14 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libpfe_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; [(cmd, stdout, stderr, returncode)]."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    return [(cmd, *proc.communicate(), proc.returncode)
+            for cmd, proc in zip(cmds, procs)]
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
@@ -82,13 +93,25 @@ def load_library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cu, _ = _sources()
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+        nvcc = _nvcc()
+        stem = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in cu]
+        tmp = BUILD_DIR / f"{stem}.tmp.so"
+        # one nvcc per source, all started together: the build takes as
+        # long as the slowest source, not the sum
+        results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                            for src, obj in zip(cu, objs)])
+        if all(rc == 0 for *_, rc in results):
+            results += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                  *map(str, objs)]])
+        log.write_text("".join(f"{' '.join(cmd)}\n{out}{err}"
+                               for cmd, out, err, _ in results))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for cmd, _, err, rc in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed (rc {rc}) on {cmd[-1]}:\n"
+                                   f"{err[-4000:]}")
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -49,6 +49,33 @@ def test_cli_matches_jax_cli(inputs, shard):
         np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
 
 
+@pytest.mark.parametrize("shard", [False, True])
+def test_spatial_effects_cli_matches_jax_cli(inputs, shard):
+    (inputs / "fx2.rhai").write_text("apply_median(2); apply_bulge(0.5);")
+    common = ["-i", str(inputs / "in*.png"), "-s", str(inputs / "fx2.rhai"),
+              "-f", "png"]
+    assert jcli.main(common + ["--output-dir", str(inputs / "jax")]) == 0
+    extra = ["--shard"] if shard else []
+    assert tcli.main(common + ["--output-dir", str(inputs / "port"),
+                               "--device", "cpu", *extra]) == 0
+    ref, out = _decoded(inputs / "jax"), _decoded(inputs / "port")
+    assert sorted(out) == sorted(ref) == ["in0.png", "in1.png", "in2.png"]
+    for name in ref:
+        np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+
+
+def test_run_one_defaults_to_the_card(inputs):
+    import inspect
+
+    assert inspect.signature(tcli.run_one).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.run_one(inputs / "in0.png", inputs / "o.png", None, "png", 90,
+                     True, "none", True, False)
+    assert not (inputs / "o.png").exists()
+
+
 def test_cli_without_script_copies_pixels(inputs):
     assert tcli.main(["-i", str(inputs / "in0.png"), "-o",
                       str(inputs / "o.png"), "--device", "cpu"]) == 0
@@ -59,7 +86,7 @@ def test_cli_without_script_copies_pixels(inputs):
 @pytest.mark.parametrize("shard", [False, True])
 @pytest.mark.parametrize("script,match", [
     ("let x = ;", "script error"),
-    ("apply_median(2);", "apply_median is not yet ported"),
+    ("apply_twist(2.0);", "apply_twist is not yet ported"),
 ])
 def test_script_failures_keep_going_with_rc_1(inputs, capsys, shard, script, match):
     (inputs / "bad.rhai").write_text(script)

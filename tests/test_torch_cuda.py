@@ -11,6 +11,9 @@ import torch
 
 from paintfe_tpu_torch.core.blend import BlendMode, blend_u8
 from paintfe_tpu_torch.ops import kernels
+from paintfe_tpu_torch.ops import transform as tfm
+from paintfe_tpu_torch.ops import warp_kernel
+from paintfe_tpu_torch.ops.effects import distort
 from paintfe_tpu_torch.ops.fused_chain import fused_chain, fused_chain_kernel
 from paintfe_tpu_torch.parallel import pipeline
 from paintfe_tpu_torch.utils.quant import ieee_div
@@ -80,5 +83,76 @@ def test_run_batch_on_the_card_equals_the_cpu(dev):
         "apply_blur(2.0); apply_brightness_contrast(10.0, 20.0); "
         "apply_levels(10.0, 245.0, 1.1); apply_sepia(0.5); flip_vertical();")
     images = _img((3, 40, 56), 8, "cpu").numpy()
+    assert np.array_equal(pipeline.run_batch(images, ops, dev),
+                          pipeline.run_batch(images, ops, "cpu"))
+
+
+@pytest.mark.parametrize("r", [1, 2, 4, 40, 110])
+@pytest.mark.parametrize("shape", [(1, 1), (37, 53), (3, 45, 70)])
+def test_median_kernel_equals_plain(dev, shape, r):
+    img = _img(shape, 9, dev)
+    before = kernels.median_kernel.launches
+    out = kernels.median_kernel(img, r)
+    assert kernels.median_kernel.launches == before + 1
+    assert torch.equal(out, kernels.median_plain(img, r))
+
+
+def _fields(h, w, dev):
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    g = torch.Generator().manual_seed(3)
+    return {
+        "identity": (xx, yy),
+        "const_shift": (xx - 7.25, yy + 3.5),
+        "swirl": (xx - 4 * torch.sin(yy / 13.0), yy - 4 * torch.cos(xx / 17.0)),
+        "deep_oob": (xx - 60.0, yy - 60.0),
+        "random": (torch.rand((h, w), generator=g) * (w + 24) - 12,
+                   torch.rand((h, w), generator=g) * (h + 24) - 12),
+    }
+
+
+@pytest.mark.parametrize("mode", ["zero", "clamp"])
+@pytest.mark.parametrize("name", ["identity", "const_shift", "swirl", "deep_oob", "random"])
+def test_warp_kernel_equals_plain(dev, name, mode):
+    src = _img((2, 64, 280), 10, dev)
+    sx, sy = (v.contiguous().to(dev) for v in _fields(64, 280, dev)[name])
+    before = warp_kernel.gather_bilinear_u8.launches
+    out = warp_kernel.gather_bilinear_u8(src, sx, sy, mode)
+    assert warp_kernel.gather_bilinear_u8.launches == before + 1
+    assert torch.equal(out, warp_kernel.gather_bilinear_plain(src, sx, sy, mode))
+    assert torch.equal(out[1], warp_kernel.gather_bilinear_u8(src[1].contiguous(), sx, sy, mode))
+
+
+@pytest.mark.parametrize("amount", [-1.0, -0.3, 0.5, 1.0])
+def test_bulge_on_the_card_equals_the_cpu(dev, amount):
+    img = _img((2, 61, 90), 11, dev)
+    assert torch.equal(distort.bulge(img, amount).cpu(), distort.bulge(img.cpu(), amount))
+
+
+def test_warp_displacement_on_the_card_equals_the_cpu(dev):
+    src = _img((40, 52), 12, "cpu")
+    field = torch.from_numpy(
+        (np.random.default_rng(12).standard_normal((40, 52, 2)) * 6).astype(np.float32))
+    assert torch.equal(tfm.warp_displacement(src.to(dev), field).cpu(),
+                       tfm.warp_displacement(src, field))
+
+
+def test_spatial_kernels_refuse_bad_tensors(dev):
+    img = _img((16, 20), 13, dev)
+    f = torch.zeros((16, 20), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.median_kernel(img.transpose(0, 1), 2)
+    with pytest.raises(ValueError, match="f32"):
+        warp_kernel.gather_bilinear_u8(img, f.double(), f)
+    with pytest.raises(ValueError, match="f32"):
+        warp_kernel.gather_bilinear_u8(img, f.cpu(), f)
+    with pytest.raises(ValueError, match="differ"):
+        warp_kernel.gather_bilinear_u8(img, f, f[:8].contiguous())
+
+
+def test_spatial_run_batch_on_the_card_equals_the_cpu(dev):
+    ops = pipeline.trace_script("apply_blur(2.0); apply_median(2); apply_bulge(0.5); "
+                                "apply_levels(10.0, 245.0, 1.1);")
+    images = _img((3, 40, 56), 14, "cpu").numpy()
     assert np.array_equal(pipeline.run_batch(images, ops, dev),
                           pipeline.run_batch(images, ops, "cpu"))

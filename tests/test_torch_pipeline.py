@@ -16,6 +16,8 @@ SCRIPTS = [
     "apply_invert(); flip_horizontal(); apply_sepia();",
     "rotate_180(); apply_blur(1); flip_vertical(); apply_levels(0, 200, 2.0);",
     "let s = 1.5; for i in 0..2 { apply_blur(s); } apply_brightness_contrast(-20, 35);",
+    "apply_median(2); apply_bulge(0.5);",
+    "apply_blur(2.0); apply_median(1); apply_bulge(-0.3); apply_levels(10.0, 245.0, 1.1);",
 ]
 
 
@@ -47,7 +49,7 @@ def test_dimension_queries_bail_without_dims_and_trace_with_them():
 
 
 @pytest.mark.parametrize("script,bail", [
-    ("apply_median(2);", "apply_median"),
+    ("apply_twist(2.0);", "apply_twist"),
     ("apply_blur(2.0); apply_glow(3.0, 0.5);", "apply_glow"),
     ("let p = get_pixel(0, 0);", "get_pixel"),
     ("resize_image(10, 10);", "resize_image"),
@@ -58,8 +60,8 @@ def test_unported_and_pixel_ops_bail(script, bail):
 
 
 def test_from_jax_ops_refuses_unported_op():
-    with pytest.raises(tpipe.NotVectorizable, match="apply_median"):
-        tpipe.from_jax_ops([jpipe.PipelineOp("apply_median", (2,))])
+    with pytest.raises(tpipe.NotVectorizable, match="apply_twist"):
+        tpipe.from_jax_ops([jpipe.PipelineOp("apply_twist", (2.0,))])
 
 
 def test_argument_validation_matches_per_image_api():
@@ -69,3 +71,14 @@ def test_argument_validation_matches_per_image_api():
         tpipe.trace_script("apply_levels(1.0, 2.0);")
     with pytest.raises(RhaiRuntimeError, match="number"):
         tpipe.trace_script('apply_blur("x");')
+    with pytest.raises(RhaiRuntimeError, match="integer"):
+        tpipe.trace_script("apply_median(2.0);")
+    with pytest.raises(RhaiRuntimeError, match="function not found"):
+        tpipe.trace_script("apply_bulge();")
+
+
+def test_median_radius_is_at_least_one_like_jax():
+    script = "apply_median(0); apply_median(-4);"
+    ops = tpipe.trace_script(script)
+    assert ops == tpipe.from_jax_ops(jpipe.trace_script(script))
+    assert [o.params for o in ops] == [(1,), (1,)]

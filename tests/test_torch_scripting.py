@@ -41,13 +41,18 @@ SCRIPTS = {
                    "rotate_canvas_180(); apply_blur(1.0);"),
     "pixels": ("set_pixel(1, 1, 9, 8, 7, 6); let p = get_pixel(1, 1); "
                "print_line(`${p}`); fill_selected(1, 2, 3, 4);"),
+    "median_bulge": "apply_median(2); apply_bulge(0.5);",
+    "spatial_selection": ("select_ellipse(12, 9, 8, 6); apply_median(1); "
+                          "apply_bulge(-0.4); invert_selection(); apply_median(3);"),
 }
 
 
 def _run(engine, source, img, mask=None):
     h, w = img.shape[:2]
+    # the port's entry points run on the card unless told otherwise
+    kw = {"device": "cpu"} if engine is tengine else {}
     px, nw, nh, console, ops = engine.execute_script_sync(
-        source, img, w, h, mask, rng_seed=1234)
+        source, img, w, h, mask, rng_seed=1234, **kw)
     return (np.asarray(px), nw, nh, console,
             [(o.kind, o.w, o.h, o.filter, tuple(o.anchor)) for o in ops])
 
@@ -71,9 +76,21 @@ def test_blur_under_a_caller_mask_matches_jax():
     np.testing.assert_array_equal(out[0], ref[0])
 
 
+@pytest.mark.parametrize("src", ["apply_median(2);", "apply_bulge(0.7);"])
+def test_spatial_effects_under_a_caller_mask_match_jax(src):
+    img = np.random.default_rng(23).integers(0, 256, (20, 24, 4), np.uint8)
+    mask = np.zeros((20, 24), np.uint8)
+    mask[4:12, 6:18] = 255
+    ref = _run(jengine, src, img, mask)
+    out = _run(tengine, src, img, mask)
+    np.testing.assert_array_equal(out[0], ref[0])
+
+
 @pytest.mark.parametrize("source", [
     "let x = ;",
     "apply_blur(1.0, 2.0);",
+    "apply_median(2.0);",
+    "apply_bulge();",
     "let a = [1]; a[5];",
     "undefined_fn(3);",
     'throw "boom";',
@@ -89,8 +106,31 @@ def test_errors_match_jax(source):
     assert te.value.friendly_message() == je.value.friendly_message()
 
 
-@pytest.mark.parametrize("name", ["apply_median", "apply_glow", "resize_image"])
+@pytest.mark.parametrize("name", ["apply_twist", "apply_glow", "resize_image"])
 def test_unported_op_is_a_script_error(name):
     img = np.zeros((4, 4, 4), np.uint8)
     with pytest.raises(tengine.ScriptError, match=f"{name} is not yet ported"):
         _run(tengine, f"{name}(2, 2);", img)
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    from paintfe_tpu_torch.scripting.api import ScriptContext
+
+    for fn in (tengine.execute_script_sync, ScriptContext):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_asking_for_the_card_without_one_raises():
+    import torch
+
+    from paintfe_tpu_torch.scripting.api import ScriptContext
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    img = np.zeros((4, 4, 4), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tengine.execute_script_sync("apply_median(1);", img, 4, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScriptContext(img, 4, 4, None, device="cuda")
