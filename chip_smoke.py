@@ -7,24 +7,38 @@ Needs one CUDA card (Hopper: the kernels are built for sm_90a) and nvcc.
 It builds the port's CUDA kernels from csrc/, then:
 
   1. holds each kernel against its plain version on the card, byte for
-     byte (tolerance 0), over several radii, fields and shapes: K-blur
-     (csrc/gaussian_blur.cu) against gaussian_blur_plain, K-chain
+     byte (tolerance 0), over several radii, fields, modes and shapes:
+     K-blur (csrc/gaussian_blur.cu) against gaussian_blur_plain, K-chain
      (csrc/fused_chain.cu) against the plain fused_chain, K-median
-     (csrc/median.cu) against median_plain and K-warp
-     (csrc/warp_bilinear.cu) in both modes against gather_bilinear_plain;
-  2. drives two main paths, each with every kernel launch count set to 0
-     just before it and read just after:
+     (csrc/median.cu) against median_plain, K-warp (csrc/warp_bilinear.cu)
+     in both modes against gather_bilinear_plain, K-composite
+     (csrc/composite.cu) against composite_stack_plain over all 25 blend
+     modes, opacities, conceal masks and initial accumulators, and K-pass
+     (csrc/blur_pass.cu) against gaussian_blur_pass_plain;
+  2. drives three main paths and one entry call, each with every kernel
+     launch count set to 0 just before it and read just after:
      - the headline path: the serial CLI (three 3840x2160 PNGs, --device
        cuda) and the --shard CLI (six 3840x2160 and two 1920x1080 PNGs,
        two shape buckets) on the headline script, then the headline 4K
        chain frame;
      - the spatial-effects path: the same two CLI runs on a script that
        blurs, takes the median, bulges and applies levels;
+     - the layered-document path: six-layer V3 .pfe documents written with
+       the port's save_pfe (an opaque-left background, MULTIPLY at 0.7,
+       SOFT_LIGHT, a brightness/contrast adjustment layer at 0.6, SCREEN,
+       a layer in a hidden folder; empty 64 px tiles in every layer) through
+       the serial CLI (two 3840x2160 documents), --shard (those two and one
+       1920x1080 document) and -f pfe, on a script that blurs the active
+       layer and replays two canvas ops on the others; a preview overlay
+       composited on the card must equal the CPU flatten;
+     - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
+       it), on a flattened 3840x2160 result: exactly two K-pass launches
+       and no other kernel;
      each output must equal the same steps run through the plain versions
      on the card, each kernel of the path must have launched, and each
-     kernel of the script must have launched exactly once per serial image
-     and once per --shard bucket (a bucket that fell back to the per-image
-     path would launch it once per image);
+     kernel must have launched exactly as often as the path needs (a
+     --shard bucket that fell back to the per-image path would launch its
+     kernels once per image; K-composite launches once per raster run);
   3. times each kernel beside its plain version at 3840x2160 with CUDA
      events (median of 15 runs after warm-up), and beside one PyTorch call
      computing the same function where there is one.
@@ -36,6 +50,7 @@ check exits non-zero before that line.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -50,7 +65,16 @@ HEADLINE = ("apply_blur(2.0); apply_brightness_contrast(10.0, 20.0); "
             "apply_levels(10.0, 245.0, 1.1); apply_sepia(0.5);")
 SPATIAL = ("apply_blur(2.0); apply_median(2); apply_bulge(0.5); "
            "apply_levels(10.0, 245.0, 1.1);")
+# rotate_canvas_180 and flip_canvas_horizontal queue canvas ops that the CLI
+# replays on the other layers
+LAYERED = "apply_blur(2.0); rotate_canvas_180(); flip_canvas_horizontal();"
+SHAPES = [(37, 53), (257, 511), UHD]
+OPACITIES = (0.0, 0.37, 1.0, 1.5)
 TIMED_RUNS = 15
+# 3840x2160 PNGs of the headline and spatial paths: serial, and --shard
+# (beside two 1920x1080 ones)
+SERIAL_UHD = 3
+SHARD_UHD = 6
 # K-median checks, (shape, radius): r = 110 takes the global route
 MEDIAN_CHECKS = ([(shape, r) for shape in [(37, 53), (257, 511), UHD] for r in (1, 2, 4)]
                  + [((257, 511), 40), ((37, 53), 110)])
@@ -76,13 +100,17 @@ def _card():
 def _wrappers():
     """Each kernel's wrapper, by the name the JSON line gives it."""
     from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
-    from paintfe_tpu_torch.ops.kernels import gaussian_blur_fused, median_kernel
+    from paintfe_tpu_torch.ops.kernels import (composite_stack_kernel,
+                                               gaussian_blur_fused,
+                                               gaussian_blur_pass, median_kernel)
     from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
 
     return {"gaussian_blur_fused": gaussian_blur_fused,
             "fused_chain_kernel": fused_chain_kernel,
             "median_kernel": median_kernel,
-            "gather_bilinear_u8": gather_bilinear_u8}
+            "gather_bilinear_u8": gather_bilinear_u8,
+            "composite_stack_kernel": composite_stack_kernel,
+            "gaussian_blur_pass": gaussian_blur_pass}
 
 
 def _counts():
@@ -102,16 +130,20 @@ def _rand(gen, shape, device):
 
 
 def _max_err(a, b):
-    return int((a.int() - b.int()).abs().max().item()) if a.numel() else 0
+    if not a.numel():
+        return 0
+    if a.is_floating_point():
+        return float((a.double() - b.double()).abs().max().item())
+    return int((a.int() - b.int()).abs().max().item())
 
 
-def _compare(name, got, want, errs):
+def _compare(name, got, want, errs, quiet=False):
     import torch
 
     torch.cuda.synchronize()
     err = _max_err(got, want) if got.shape == want.shape else 256
     errs.append(err)
-    if got.shape != want.shape or err != 0:
+    if got.shape != want.shape or not torch.equal(got, want):
         where = ""
         if got.shape == want.shape:
             bad = (got != want).nonzero()
@@ -121,7 +153,8 @@ def _compare(name, got, want, errs):
         raise CheckFailed(f"{name}: kernel differs from its plain version "
                           f"(max abs err {err}, shapes {tuple(got.shape)} "
                           f"vs {tuple(want.shape)}{where})")
-    print(f"  ok  {name}")
+    if not quiet:
+        print(f"  ok  {name}")
 
 
 def check_blur(dev, gen, errs):
@@ -232,6 +265,95 @@ def check_warp(dev, gen, errs):
                  gather_bilinear_plain(batch, sx, sy, "clamp"), errs)
 
 
+def _composite_inputs(gen, n, shape, dev):
+    """n random layers (clear, opaque and mixed alpha rows), conceal masks
+    (rows of 0 and 255 among random ones) and an initial accumulator."""
+    import torch
+
+    layers = _rand(gen, (n,) + tuple(shape), dev)
+    layers[:, 0::7, :, 3] = 0
+    layers[:, 1::7, :, 3] = 255
+    conceal = torch.randint(0, 256, (n,) + tuple(shape), generator=gen,
+                            dtype=torch.uint8).to(dev)
+    conceal[:, 2::5] = 0
+    conceal[:, 3::5] = 255
+    return layers, conceal, _rand(gen, shape, dev)
+
+
+def check_composite(dev, gen, errs):
+    import torch
+
+    from paintfe_tpu_torch.ops.kernels import (COMPOSITE_CHUNK,
+                                               composite_stack_kernel,
+                                               composite_stack_plain)
+
+    print("K-composite vs composite_stack_plain (byte-equal):")
+    variants = (("", False, False), (" +conceal", True, False),
+                (" +init", False, True), (" +conceal +init", True, True))
+    for shape in SHAPES:
+        # every mode at every opacity, over a NORMAL base, under SOFT_LIGHT
+        layers, conceal, init = _composite_inputs(gen, 3, shape, dev)
+        checks = 0
+        for mode in range(25):
+            for opacity in OPACITIES:
+                modes, opac = (0, mode, 16), (1.0, opacity, 0.6)
+                for name, c, i in variants:
+                    c, i = (conceal if c else None), (init if i else None)
+                    _compare(f"mode {mode} opacity {opacity}{name} "
+                             f"{shape[1]}x{shape[0]}",
+                             composite_stack_kernel(layers, modes, opac, c, i),
+                             composite_stack_plain(layers, modes, opac, c, i),
+                             errs, quiet=True)
+                    checks += 1
+        print(f"  ok  25 modes x opacities {OPACITIES} x conceal/init, N=3, "
+              f"{shape[1]}x{shape[0]} ({checks} checks)")
+        del layers, conceal, init
+        # 1, 6 and more layers than one launch folds, cycling the modes
+        for n in (1, 6, COMPOSITE_CHUNK + 8):
+            layers, conceal, init = _composite_inputs(gen, n, shape, dev)
+            modes = [(7 * k + 3) % 25 for k in range(n)]
+            opac = [OPACITIES[k % 4] for k in range(n)]
+            for name, c, i in variants:
+                c, i = (conceal if c else None), (init if i else None)
+                _compare(f"N={n}{name} {shape[1]}x{shape[0]}",
+                         composite_stack_kernel(layers, modes, opac, c, i),
+                         composite_stack_plain(layers, modes, opac, c, i), errs)
+            del layers, conceal, init
+            torch.cuda.empty_cache()
+
+
+def _plain_blur_pallas(img, sigma):
+    """gaussian_blur_pallas through K-pass's plain version."""
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+    from paintfe_tpu_torch.ops.kernels import gaussian_blur_pass_plain
+    from paintfe_tpu_torch.utils.quant import round_u8
+
+    taps = gaussian_kernel(sigma)
+    hbuf = gaussian_blur_pass_plain(img.float().permute(2, 0, 1).contiguous(), taps)
+    vbuf = gaussian_blur_pass_plain(hbuf.transpose(1, 2).contiguous(), taps)
+    return round_u8(vbuf.permute(2, 1, 0))
+
+
+def check_blur_pass(dev, gen, errs):
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+    from paintfe_tpu_torch.ops.kernels import (gaussian_blur_pallas,
+                                               gaussian_blur_pass,
+                                               gaussian_blur_pass_plain)
+
+    print("K-pass vs gaussian_blur_pass_plain (byte-equal):")
+    for shape in SHAPES:
+        img = _rand(gen, shape, dev)
+        planar = img.float().permute(2, 0, 1).contiguous()
+        for sigma in (0.5, 2.0, 8.0, 25.0):
+            taps = gaussian_kernel(sigma)
+            _compare(f"one pass sigma={sigma} f32 [4,{shape[0]},{shape[1]}]",
+                     gaussian_blur_pass(planar, taps),
+                     gaussian_blur_pass_plain(planar, taps), errs)
+            _compare(f"gaussian_blur_pallas sigma={sigma} {shape[1]}x{shape[0]}",
+                     gaussian_blur_pallas(img, sigma), _plain_blur_pallas(img, sigma),
+                     errs)
+
+
 def _plain_headline(img):
     """The headline script's steps through the plain versions."""
     from paintfe_tpu_torch.ops.kernels import gaussian_blur_plain
@@ -276,9 +398,9 @@ def _write_inputs(d, specs, seed):
 
 
 def _drive_cli(dev, tmp, tag, script, plain_steps, script_kernels, seed):
-    """The serial CLI on three 3840x2160 PNGs (with its per-stage times),
-    then --shard on six 3840x2160 and two 1920x1080 PNGs (two shape
-    buckets); checks exit codes, launch counts per image and per bucket,
+    """The serial CLI on SERIAL_UHD 3840x2160 PNGs (with its per-stage
+    times), then --shard on SHARD_UHD 3840x2160 and two 1920x1080 PNGs (two
+    shape buckets); checks exit codes, launch counts per image and per bucket,
     and every output against `plain_steps` on the card."""
     import numpy as np
     import torch
@@ -292,8 +414,8 @@ def _drive_cli(dev, tmp, tag, script, plain_steps, script_kernels, seed):
     (root / "shard").mkdir()
     (root / "fx.rhai").write_text(script)
     serial = _write_inputs(root / "serial",
-                           [(f"s{k}.png", UHD) for k in range(3)], seed)
-    shard = _write_inputs(root / "shard", [(f"u{k}.png", UHD) for k in range(6)]
+                           [(f"s{k}.png", UHD) for k in range(SERIAL_UHD)], seed)
+    shard = _write_inputs(root / "shard", [(f"u{k}.png", UHD) for k in range(SHARD_UHD)]
                           + [(f"f{k}.png", FHD) for k in range(2)], seed + 1)
     argv = ["-s", str(root / "fx.rhai"), "-f", "png", "--device", "cuda"]
     c0 = _counts()
@@ -307,16 +429,17 @@ def _drive_cli(dev, tmp, tag, script, plain_steps, script_kernels, seed):
                          str(root / "out_shard"), "--shard", *argv])
     t2 = time.perf_counter()
     c2 = _counts()
-    print(f"  {tag}: serial CLI rc {rc_serial} ({t1 - t0:.3f} s, 3 x 4K), "
-          f"--shard CLI rc {rc_shard} ({t2 - t1:.3f} s, 6 x 4K + 2 x 1080p)")
+    print(f"  {tag}: serial CLI rc {rc_serial} ({t1 - t0:.3f} s, {SERIAL_UHD} x 4K), "
+          f"--shard CLI rc {rc_shard} ({t2 - t1:.3f} s, {SHARD_UHD} x 4K + 2 x 1080p)")
     if rc_serial != 0 or rc_shard != 0:
         raise CheckFailed(f"{tag}: CLI exit codes: serial {rc_serial}, "
                           f"shard {rc_shard}")
     for name in script_kernels:
         n_serial, n_shard = c1[name] - c0[name], c2[name] - c1[name]
-        if n_serial != 3:
+        if n_serial != SERIAL_UHD:
             raise CheckFailed(f"{tag}: the serial CLI launched {name} "
-                              f"{n_serial} times for 3 images, expected 3")
+                              f"{n_serial} times for {SERIAL_UHD} images, "
+                              f"expected {SERIAL_UHD}")
         if n_shard != 2:
             raise CheckFailed(f"{tag}: --shard launched {name} {n_shard} times "
                               "for 2 shape buckets, expected 2: a bucket did "
@@ -335,8 +458,8 @@ def _drive_cli(dev, tmp, tag, script, plain_steps, script_kernels, seed):
         if not np.array_equal(got, expect(arr)):
             raise CheckFailed(f"{tag}: --shard CLI output {name} differs from "
                               "the plain steps")
-    print(f"  ok  {tag}: CLI outputs (serial 3, --shard 8) equal the plain "
-          "steps; one launch per serial image and per --shard bucket")
+    print(f"  ok  {tag}: CLI outputs (serial {len(serial)}, --shard {len(shard)}) "
+          "equal the plain steps; one launch per serial image and per --shard bucket")
 
 
 def _check_launched(tag, counts, names):
@@ -347,8 +470,8 @@ def _check_launched(tag, counts, names):
 
 
 def drive_main_paths(dev, gen, tmp):
-    """Both main paths, each with launch counts from 0.  Returns the
-    launches of each kernel, summed over the paths."""
+    """The main paths and K-pass's entry call, each with launch counts
+    from 0.  Returns each phase's launch counts, by phase."""
     import torch
 
     from paintfe_tpu_torch.ops.fused_chain import fused_chain, fused_chain_kernel
@@ -375,7 +498,256 @@ def drive_main_paths(dev, gen, tmp):
     spatial = _counts()
     _check_launched("spatial", spatial,
                     ("gaussian_blur_fused", "median_kernel", "gather_bilinear_u8"))
-    return {k: headline[k] + spatial[k] for k in headline}
+
+    _reset_counts()
+    layered = drive_layered_path(dev, tmp)
+    entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
+    return {"headline": headline, "spatial": spatial, "layered": layered,
+            "gaussian_blur_pallas entry call": entry}
+
+
+def drive_blur_pass_entry(dev, png):
+    """gaussian_blur_pallas on a flattened 3840x2160 result, launch counts
+    from 0 just before it: K-pass's one entry point, which no CLI path
+    calls.  It must launch K-pass exactly twice (one pass each way) and no
+    other kernel, and equal its plain version.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from paintfe_tpu_torch.ops.kernels import gaussian_blur_pallas
+
+    flat = torch.from_numpy(np.array(Image.open(png))).to(dev)
+    _reset_counts()
+    blurred = gaussian_blur_pallas(flat, 2.0)
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"  gaussian_blur_pallas entry call launches: {counts}")
+    if counts != {name: 2 if name == "gaussian_blur_pass" else 0 for name in counts}:
+        raise CheckFailed("gaussian_blur_pallas: expected two K-pass launches "
+                          f"and no other kernel, got {counts}")
+    if not torch.equal(blurred, _plain_blur_pallas(flat, 2.0)):
+        raise CheckFailed("gaussian_blur_pallas differs from its plain version")
+    print("  ok  gaussian_blur_pallas (two K-pass launches) equals its plain version")
+    return counts
+
+
+def _layered_document(rng, h, w):
+    """A six-layer document: an opaque-left background, MULTIPLY at 0.7,
+    SOFT_LIGHT (the active layer), a brightness/contrast adjustment layer
+    at 0.6, SCREEN, and a DIFFERENCE layer in a hidden folder.  Raster
+    content is gradients plus noise; the top-right 128x256 block is empty
+    in every layer, so tiles stay empty after the script and the
+    active-tile mask clears them."""
+    import numpy as np
+
+    from paintfe_tpu_torch.core.blend import BlendMode
+    from paintfe_tpu_torch.core.canvas import (Canvas, Layer, LayerFolder,
+                                               canonicalize_tiles)
+    from paintfe_tpu_torch.core.deep import AdjustmentKind, AdjustmentLayerData
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    doc = Canvas(width=w, height=h)
+    doc.folders = [LayerFolder(id=1, name="hidden", visible=False)]
+    specs = [("background", BlendMode.NORMAL, 1.0), ("multiply", BlendMode.MULTIPLY, 0.7),
+             ("soft", BlendMode.SOFT_LIGHT, 1.0), ("bc", None, 0.6),
+             ("screen", BlendMode.SCREEN, 1.0), ("hidden", BlendMode.DIFFERENCE, 1.0)]
+    for k, (name, mode, opacity) in enumerate(specs):
+        layer = Layer.new(name, w, h)
+        layer.opacity = opacity
+        if mode is None:
+            layer.content = "adjustment"
+            layer.adjustment = AdjustmentLayerData(
+                kind=AdjustmentKind.BRIGHTNESS_CONTRAST, brightness=10.0, contrast=20.0)
+        else:
+            layer.blend_mode = mode
+            waves = [np.sin(xx * (0.003 + 0.001 * c + 0.0007 * k) + yy * (0.002 * c - 0.004)
+                            + k) for c in range(4)]
+            px = np.stack([(v + 1.0) * 110.0 for v in waves], axis=-1)
+            px += rng.integers(0, 24, (h, w, 4))
+            px = np.clip(px, 0, 255).astype(np.uint8)
+            if k == 0:
+                px[:, : w // 2, 3] = 255  # opaque left half
+            px[:128, w - 256:] = 0
+            layer.pixels = canonicalize_tiles(px)
+        doc.layers.append(layer)
+    doc.layers[5].folder_id = 1
+    doc.active_layer_index = 2
+    return doc
+
+
+@contextlib.contextmanager
+def _plain_fold():
+    """Route the compositor's fold through composite_stack_plain."""
+    import paintfe_tpu_torch.core.composite as composite
+    from paintfe_tpu_torch.ops.kernels import composite_stack_plain
+
+    kernel = composite.composite_stack_kernel
+    composite.composite_stack_kernel = composite_stack_plain
+    try:
+        yield
+    finally:
+        composite.composite_stack_kernel = kernel
+
+
+def _plain_layered(path, dev):
+    """The CLI's steps on one document through the plain versions on the
+    card: the script on the active layer, the canvas ops replayed on the
+    others.  Returns the document before the flatten."""
+    import torch
+
+    from paintfe_tpu_torch.core.canvas import canonicalize_tiles
+    from paintfe_tpu_torch.io.pfe import load_pfe
+    from paintfe_tpu_torch.ops import transform as tfm
+    from paintfe_tpu_torch.ops.kernels import gaussian_blur_plain
+
+    doc = load_pfe(str(path))
+    for k, layer in enumerate(doc.layers):
+        px = layer.pixels
+        if k == doc.active_layer_index:
+            px = gaussian_blur_plain(torch.from_numpy(px).to(dev), 2.0).cpu().numpy()
+        px = tfm.flip_horizontal(tfm.rotate_180(px))
+        layer.pixels = canonicalize_tiles(px) if k == doc.active_layer_index else px
+    return doc
+
+
+def drive_layered_path(dev, tmp):
+    """The layered-document path: the serial CLI on two 3840x2160 V3
+    documents (with its load / script / flatten / encode times), --shard on
+    those two and a 1920x1080 one, -f pfe on one.  Checks exit codes, exact
+    launch counts (two raster runs per document, one blur each) and every
+    output against the plain route on the card, then composite_device and a
+    preview overlay blended on the card.  Returns the launch counts of the
+    path."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from paintfe_tpu_torch import cli
+    from paintfe_tpu_torch.core.blend import BlendMode
+    from paintfe_tpu_torch.core.device import DeviceLayerCache, composite_device
+    from paintfe_tpu_torch.io.pfe import load_pfe, save_pfe
+
+    root = tmp / "layered"
+    for d in ("serial", "shard"):
+        (root / d).mkdir(parents=True)
+    (root / "fx.rhai").write_text(LAYERED)
+    rng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    for name, (h, w) in (("d0", UHD), ("d1", UHD), ("f0", FHD)):
+        doc = _layered_document(rng, h, w)
+        save_pfe(doc, str(root / "shard" / f"{name}.pfe"))
+        if name != "f0":
+            save_pfe(doc, str(root / "serial" / f"{name}.pfe"))
+    print(f"  layered: wrote 3 documents with save_pfe ({time.perf_counter() - t0:.3f} s)")
+    argv = ["-s", str(root / "fx.rhai"), "--device", "cuda"]
+    runs = [("serial", ["-i", str(root / "serial" / "*.pfe"), "-f", "png", "--profile"]),
+            ("shard", ["-i", str(root / "shard" / "*.pfe"), "-f", "png", "--shard"]),
+            ("pfe", ["-i", str(root / "serial" / "d0.pfe"), "-f", "pfe"])]
+    # per run: documents, K-composite launches (two raster runs a document
+    # flattened), K-blur launches (one apply_blur a document)
+    expected = {"serial": (2, 4, 2), "shard": (3, 6, 3), "pfe": (1, 0, 1)}
+    for tag, args in runs:
+        c0 = _counts()
+        t1 = time.perf_counter()
+        rc = cli.main(args + ["--output-dir", str(root / f"out_{tag}"), *argv])
+        t2 = time.perf_counter()
+        c1 = _counts()
+        n_docs, n_comp, n_blur = expected[tag]
+        got = (c1["composite_stack_kernel"] - c0["composite_stack_kernel"],
+               c1["gaussian_blur_fused"] - c0["gaussian_blur_fused"])
+        print(f"  layered {tag}: rc {rc} ({t2 - t1:.3f} s, {n_docs} documents); "
+              f"K-composite {got[0]}, K-blur {got[1]} launches")
+        if rc != 0:
+            raise CheckFailed(f"layered {tag}: CLI exit code {rc}")
+        if got != (n_comp, n_blur):
+            raise CheckFailed(f"layered {tag}: launched K-composite {got[0]} and "
+                              f"K-blur {got[1]} times for {n_docs} documents, "
+                              f"expected {n_comp} and {n_blur}")
+    torch.cuda.synchronize()
+    launches = _counts()
+    _check_launched("layered", launches, ("composite_stack_kernel", "gaussian_blur_fused"))
+
+    with _plain_fold():
+        for tag, folder, names in (("serial", "serial", ("d0", "d1")),
+                                   ("shard", "shard", ("d0", "d1", "f0"))):
+            for name in names:
+                want = _plain_layered(root / folder / f"{name}.pfe", dev).composite(device=dev)
+                got = np.asarray(Image.open(root / f"out_{tag}" / f"{name}.png"))
+                if not np.array_equal(got, want):
+                    raise CheckFailed(f"layered {tag}: {name}.png differs from the "
+                                      "plain route")
+    save_pfe(_plain_layered(root / "serial" / "d0.pfe", dev), str(root / "want.pfe"))
+    if (root / "out_pfe" / "d0.pfe").read_bytes() != (root / "want.pfe").read_bytes():
+        raise CheckFailed("layered pfe: d0.pfe differs from the plain route's bytes")
+    processed = _plain_layered(root / "serial" / "d1.pfe", dev)
+    if processed.active_tile_mask(processed.visible_layers()) is None:
+        raise CheckFailed("layered: no 64 px tile is empty, the tile mask never ran")
+    doc = load_pfe(str(root / "serial" / "d1.pfe"))
+    if not np.array_equal(composite_device(doc, DeviceLayerCache(dev)).cpu().numpy(),
+                          doc.composite(device=dev)):
+        raise CheckFailed("layered: composite_device differs from Canvas.composite")
+    # a preview overlay on the active layer, pre-blended on the card
+    small = load_pfe(str(root / "shard" / "f0.pfe"))
+    h, w = small.height, small.width
+    small.preview = np.zeros((h, w, 4), np.uint8)
+    small.preview[h // 10: h * 2 // 3, w // 10: w * 3 // 4] = np.random.default_rng(6).integers(
+        0, 256, (h * 2 // 3 - h // 10, w * 3 // 4 - w // 10, 4), np.uint8)
+    small.preview_blend_mode = BlendMode.OVERWRITE
+    if not np.array_equal(composite_device(small, DeviceLayerCache(dev)).cpu().numpy(),
+                          small.composite(device="cpu")):
+        raise CheckFailed("layered: a preview composited on the card differs from "
+                          "the CPU flatten")
+    print("  ok  layered: PNG (serial 2, --shard 3) and .pfe outputs equal the plain "
+          "route; exact launch counts; composite_device equals Canvas.composite; a "
+          "preview composited on the card equals the CPU flatten")
+    profile_flatten(dev, doc)
+    return launches
+
+
+def profile_flatten(dev, doc):
+    """Where the flatten of one document goes: the wall time of
+    Canvas.composite, its host parts timed alone (the active-tile mask, the
+    uploads of the visible raster layers) and, from torch.profiler, the
+    device's busy time and K-composite's share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paintfe_tpu_torch.core.canvas import upload
+
+    def wall_ms(fn, runs=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    vis = doc.visible_layers()
+    rasters = [l for _, l in vis if l.content != "adjustment"]
+    flatten_ms = wall_ms(lambda: doc.composite(device=dev))
+    mask_ms = wall_ms(lambda: doc.active_tile_mask(vis))
+    upload_ms = wall_ms(lambda: [upload(l.pixels, dev) for l in rasters])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        doc.composite(device=dev)
+        torch.cuda.synchronize()
+    busy = kernel = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        busy += us
+        if "composite_kernel" in e.key:
+            kernel += us
+    device = (f"device busy {busy / 1e3:.3f} ms ({busy / 1e3 / flatten_ms * 100:.1f}% "
+              f"of it), K-composite {kernel / 1e3:.3f} ms" if busy
+              else "device busy not measured (the profiler saw no device time)")
+    print(f"  flatten of one {doc.width}x{doc.height} document, median of 5: "
+          f"{flatten_ms:.3f} ms wall; alone: active-tile mask {mask_ms:.3f} ms, "
+          f"{len(rasters)} layer uploads {upload_ms:.3f} ms; {device}")
 
 
 def _time_ms(fn, runs=TIMED_RUNS):
@@ -423,7 +795,11 @@ def time_kernels(dev, gen, card):
     from paintfe_tpu_torch.ops.effects.distort import bulge_field
     from paintfe_tpu_torch.ops.filters import gaussian_kernel
     from paintfe_tpu_torch.ops.fused_chain import fused_chain, fused_chain_kernel
-    from paintfe_tpu_torch.ops.kernels import (gaussian_blur_fused,
+    from paintfe_tpu_torch.ops.kernels import (composite_stack_kernel,
+                                               composite_stack_plain,
+                                               gaussian_blur_fused,
+                                               gaussian_blur_pass,
+                                               gaussian_blur_pass_plain,
                                                gaussian_blur_plain, median_kernel,
                                                median_plain)
     from paintfe_tpu_torch.ops.warp_kernel import (gather_bilinear_plain,
@@ -444,12 +820,33 @@ def time_kernels(dev, gen, card):
     padded = F.pad(img_f, (r, r, r, r), mode="replicate")
     weight = torch.outer(taps, taps).expand(4, 1, -1, -1).contiguous()
     grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], -1)[None]
+    # K-pass: one pass along W of the planar f32 image; the yardstick is a
+    # grouped conv1d over the replicate-padded rows (one group a row)
+    planar = img.permute(2, 0, 1).float().contiguous()
+    taps_np = gaussian_kernel(2.0)
+    rows = F.pad(planar, (r, r), mode="replicate")
+    row_weight = taps.view(1, 1, -1).expand(h, 1, -1).contiguous()
+    # K-composite: four layers over an initial accumulator
+    stack = [_rand(gen, UHD, dev) for _ in range(4)]
+    init = _rand(gen, UHD, dev)
+    modes, opac = (0, 1, 16, 2), (1.0, 0.7, 1.0, 0.37)
 
     nt = taps.numel()
     blur_ops = 4 * nt * 4 * px  # two passes of nt multiplies and adds, 4 channels
     # the chain's tail: 36 f32 operations a pixel, 55 more where the
     # overlay is not clear (its soft-light Porter-Duff)
     chain_ops = blur_ops + 36 * px + 55 * int((ov[..., 3] != 0).sum())
+    # a blend that runs (top alpha not 0, and not NORMAL-opaque at full
+    # opacity): 8 u8->f32 divides, the opacity product, 7 for the alpha, 8 a
+    # channel for the Porter-Duff tail, plus its mixer's operations a channel
+    mixer_ops = {0: 0, 1: 1, 2: 4, 16: 9}
+    composite_ops = 0
+    for layer, mode, o in zip(stack, modes, opac):
+        alpha = layer[..., 3]
+        runs = alpha != 0
+        if mode == 0 and o >= 1.0:
+            runs &= alpha != 255
+        composite_ops += int(runs.sum()) * (16 + 24 + 3 * mixer_ops[mode])
     pairs = {
         "fused_chain_kernel": (
             lambda: fused_chain_kernel(img, ov), lambda: fused_chain(img, ov),
@@ -471,6 +868,17 @@ def time_kernels(dev, gen, card):
             lambda: F.grid_sample(img_f, grid, mode="bilinear",
                                   padding_mode="border", align_corners=True),
             _bound(frame + 2 * 4 * px + frame, 52 * px, F32_OPS_PER_S)),
+        # four layers and the accumulator read once, the result written once
+        "composite_stack_kernel": (
+            lambda: composite_stack_kernel(stack, modes, opac, None, init),
+            lambda: composite_stack_plain(stack, modes, opac, None, init), None,
+            _bound((len(stack) + 2) * frame, composite_ops, F32_OPS_PER_S)),
+        # one f32 read and one f32 write of [4, H, W]; nt products and sums
+        "gaussian_blur_pass": (
+            lambda: gaussian_blur_pass(planar, taps_np),
+            lambda: gaussian_blur_pass_plain(planar, taps_np),
+            lambda: F.conv1d(rows, row_weight, groups=h),
+            _bound(2 * 4 * 4 * px, 2 * nt * 4 * px, F32_OPS_PER_S)),
     }
     result = {}
     print(f"timing at 3840x2160, CUDA events, median of {TIMED_RUNS} "
@@ -502,6 +910,10 @@ KERNEL_SOURCES = {
                       "paintfe_tpu/ops/pallas_kernels.py:488"),
     "gather_bilinear_u8": ("paintfe_tpu_torch/csrc/warp_bilinear.cu",
                            "paintfe_tpu/ops/warp_kernel.py:270"),
+    "composite_stack_kernel": ("paintfe_tpu_torch/csrc/composite.cu",
+                               "paintfe_tpu/ops/pallas_kernels.py:242"),
+    "gaussian_blur_pass": ("paintfe_tpu_torch/csrc/blur_pass.cu",
+                           "paintfe_tpu/ops/pallas_kernels.py:58"),
 }
 
 
@@ -535,16 +947,22 @@ def main() -> int:
         check_median(dev, gen, errs["median_kernel"])
         check_warp(dev, gen, errs["gather_bilinear_u8"])
         torch.cuda.empty_cache()
+        check_composite(dev, gen, errs["composite_stack_kernel"])
+        check_blur_pass(dev, gen, errs["gaussian_blur_pass"])
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
-            launches = drive_main_paths(dev, gen, pathlib.Path(tmp))
+            phases = drive_main_paths(dev, gen, pathlib.Path(tmp))
         times = time_kernels(dev, gen, card)
     finally:
         shutdown_encode_pool()
 
+    # launches: summed over the phases; launched_on: the phases that
+    # launched it (K-pass only from its entry call, which no CLI path makes)
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": max(errs[name]),
-         **times[name]}
+         "launches": sum(c[name] for c in phases.values()),
+         "launched_on": [tag for tag, c in phases.items() if c[name]],
+         "max_abs_err": max(errs[name]), **times[name]}
         for name, (source, replaces) in KERNEL_SOURCES.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,20 @@
 """Headless CLI batch mode of the port (paintfe_tpu.cli counterpart).
 
 Behavioral contract: src/cli.rs — the same flags, glob resolve/dedup,
-per-file load -> script -> encode, format inference, collision-safe `_out`
+per-file load -> script on the active layer -> canvas-op replay on the
+other layers -> flatten -> encode, format inference, collision-safe `_out`
 suffix, and exit code 0 when every input is OK, 1 otherwise, with
 keep-going semantics.  `--device {cuda,cpu}` picks the torch device the
-device-side ops run on; `cuda` with no card is an error, never a silent
-run on the CPU.  `--shard` runs the traced op chain over shape-bucketed
-batches on that device (parallel/batch.py).
+device-side ops and the flatten run on; `cuda` with no card is an error,
+never a silent run on the CPU.  `--shard` runs the traced op chain over
+shape-bucketed batches on that device (parallel/batch.py); layered
+documents take the serial canvas path there too.
 
-Not yet ported (each reports so per input, rc 1): layered .pfe/.pdn
-documents, 16-bit inputs, .pfe output, --animate and --trace-dir, and a
-multi-host launch (PAINTFE_COORDINATOR).
+Not yet ported (each reports so per input, rc 1): .pdn documents, text
+layers in .pfe documents, 16-bit inputs, resize canvas ops, --animate and
+--trace-dir, and a multi-host launch (PAINTFE_COORDINATOR).
 
-    python -m paintfe_tpu_torch.cli -i 'shots/*.png' -s fx.rhai \\
+    python -m paintfe_tpu_torch.cli -i 'docs/*.pfe' -s fx.rhai \\
         --output-dir out -f png --device cuda
 """
 
@@ -29,18 +31,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from paintfe_tpu_torch.core.canvas import canonicalize_tiles, clamp_dimensions
-from paintfe_tpu_torch.io import codecs
-from paintfe_tpu_torch.scripting import ScriptError, execute_script_sync
-
-
-class NotYetPorted(Exception):
-    """An input or option whose code path is not yet ported."""
-
+from paintfe_tpu_torch.core.canvas import Canvas, canonicalize_tiles
+from paintfe_tpu_torch.errors import NotYetPorted
+from paintfe_tpu_torch.io import codecs, deep_export, pfe
+from paintfe_tpu_torch.scripting import ScriptError, apply_canvas_ops, execute_script_sync
 
 # per-file keep-going: every error class an input file can produce
-_INPUT_ERRORS = (codecs.CodecError, NotYetPorted, ScriptError, OSError,
-                 ValueError)
+_INPUT_ERRORS = (codecs.CodecError, pfe.PfeError, NotYetPorted, ScriptError,
+                 OSError, ValueError)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flatten visible layers before saving")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--profile", action="store_true",
-                   help="print per-stage timings (load/script/encode)")
+                   help="print per-stage timings (load/script/flatten/encode)")
     p.add_argument("--trace-dir", metavar="DIR",
                    help="write a profiler trace of the run to DIR (not yet ported)")
     p.add_argument("--shard", action="store_true",
@@ -155,48 +153,91 @@ def _is_deep(path: pathlib.Path) -> bool:
 def load_image(path) -> np.ndarray:
     """Decode one single-layer raster input as RGBA u8 [H, W, 4]."""
     path = pathlib.Path(path)
-    if path.suffix.lower() in (".pfe", ".pdn"):
-        raise NotYetPorted(f"{path.suffix.lower()} input '{path}' is not yet "
-                           "ported to paintfe_tpu_torch")
     if _is_deep(path):
         raise NotYetPorted(f"16-bit input '{path}' is not yet ported to "
                            "paintfe_tpu_torch")
     return codecs.load_image(path)
 
 
+def load_canvas(path: pathlib.Path) -> Canvas:
+    """One input as a document: a .pfe as its layers, a raster image as a
+    one-layer canvas."""
+    path = pathlib.Path(path)
+    if path.suffix.lower() == ".pfe":
+        return pfe.load_pfe(str(path))
+    if path.suffix.lower() == ".pdn":
+        raise NotYetPorted(f".pdn input '{path}' is not yet ported to "
+                           "paintfe_tpu_torch")
+    return Canvas.from_image(load_image(path))
+
+
+def _commit_script_result(canvas, idx, result, new_w, new_h, canvas_ops):
+    """Commit a script's u8 result to the active layer: canonicalize
+    transparent tiles (the layer-commit invariant), replay canvas-wide ops
+    on the other layers, fix dims, and keep the deep payload consistent (a
+    changed u8 result or new dims rebuild it from the result, since the
+    script semantics are u8)."""
+    from paintfe_tpu_torch.core.deep import DeepRgbaBuffer, PixelFormat
+
+    layer = canvas.layers[idx]
+    old_pixels = layer.pixels
+    new_pixels = canonicalize_tiles(np.asarray(result, np.uint8).reshape(new_h, new_w, 4))
+    if layer.deep_pixels is not None and (
+            new_pixels.shape != old_pixels.shape
+            or not np.array_equal(new_pixels, old_pixels)):
+        fmt = (PixelFormat(layer.pixel_format) if layer.pixel_format
+               is not None else PixelFormat.RGBA_U8)
+        layer.deep_pixels = DeepRgbaBuffer.from_rgba8(new_pixels, fmt)
+    layer.pixels = new_pixels
+    if canvas_ops:
+        apply_canvas_ops(canvas, canvas_ops, skip_layer=idx)
+    canvas.width, canvas.height = new_w, new_h
+
+
 def run_one(input_path: pathlib.Path, output_path: pathlib.Path,
             script_source: Optional[str], fmt: str, quality: int,
             webp_lossless: bool, tiff_compression: str, flatten: bool,
             verbose: bool, timer=None, device="cuda"):
-    """Load, script and encode one input on `device` (the card unless the
-    caller passes "cpu"; CUDA with no card raises RuntimeError)."""
+    """Load, script, flatten and encode one input on `device` (the card
+    unless the caller passes "cpu"; CUDA with no card raises RuntimeError)."""
     from paintfe_tpu_torch.utils.device import resolve_device
     from paintfe_tpu_torch.utils.profiling import StageTimer
 
     device = resolve_device(device)
     if timer is None:
         timer = StageTimer(device)
-    if fmt == "pfe":
-        raise NotYetPorted(".pfe output is not yet ported to paintfe_tpu_torch")
     with timer.stage("load"):
-        img = load_image(input_path)
-        w, h = clamp_dimensions(img.shape[1], img.shape[0])
-        img = img[:h, :w]
+        canvas = load_canvas(input_path)
 
     if script_source is not None:
+        idx = canvas.active_layer_index
         with timer.stage("script"):
-            result, new_w, new_h, console, _canvas_ops = execute_script_sync(
-                script_source, img, w, h, None, device=device)
+            result, new_w, new_h, console, canvas_ops = execute_script_sync(
+                script_source, canvas.layers[idx].pixels, canvas.width,
+                canvas.height, canvas.selection, device=device)
         if verbose:
             for line in console:
                 print(f"  [script] {line}")
-        # the layer-commit invariant (canvas.py); canvas ops only replay on
-        # other layers, and a raster input has one
-        img = canonicalize_tiles(np.asarray(result, np.uint8).reshape(new_h, new_w, 4))
+        _commit_script_result(canvas, idx, result, new_w, new_h, canvas_ops)
 
+    if fmt == "pfe":
+        with timer.stage("encode"):
+            pfe.save_pfe(canvas, str(output_path))
+        return
+
+    if flatten and (len(canvas.layers) > 1 or deep_export.needs_deep_export(canvas)):
+        # depth-aware export (io.rs:1413-1453, :1588-1631); plain
+        # single-layer documents skip the compositor (cli.rs:282-293)
+        with timer.stage("flatten"):
+            prep = deep_export.prepare_export_image(canvas, device=device)
+        with timer.stage("encode"):
+            deep_export.encode_prepared_and_write(
+                prep, output_path, fmt, quality=quality,
+                tiff_compression=tiff_compression, webp_lossless=webp_lossless)
+        return
     with timer.stage("encode"):
-        codecs.save_image(img, output_path, fmt, quality=quality,
-                          webp_lossless=webp_lossless,
+        codecs.save_image(canvas.active_layer.pixels, output_path, fmt,
+                          quality=quality, webp_lossless=webp_lossless,
                           tiff_compression=tiff_compression)
 
 

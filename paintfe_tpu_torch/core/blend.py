@@ -1,4 +1,5 @@
-"""The 25 blend modes plus XOR and OVERWRITE, as plain torch ops.
+"""The 25 blend modes (23 channel mixers plus XOR and OVERWRITE), as plain
+torch ops.
 
 Same contract as paintfe_tpu.core.blend: straight (non-premultiplied)
 alpha, Porter-Duff source-over with un-premultiply, a truncating u8 cast,

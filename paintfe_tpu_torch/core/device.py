@@ -1,0 +1,123 @@
+"""Device residency: the layer buffer cache and the device-resident
+composites (paintfe_tpu.core.device counterpart).
+
+Behavioral contract: src/gpu/renderer.rs — per-layer texture cache
+(`ensure_layer_texture` :324, `layer_is_current` :427), VRAM accounting
+(:953-965), and the transfer-minimisation discipline (upload only what
+changed; keep composites device-resident).  Here the "texture" is a torch
+tensor on the card.  `composite_device` and `composite_dirty_rect` run the
+same flatten as Canvas.composite (core/canvas.flatten: conceal masks, the
+preview pre-blend, in-stream adjustment layers with the active-tile mask),
+so the interactive path and the host flatten give identical bytes.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Dict, Tuple
+
+import torch
+
+from paintfe_tpu_torch.core.canvas import upload, flatten
+
+
+class DeviceLayerCache:
+    """Keeps layer buffers (pixels + mask) device-resident.
+
+    Entries hold the host array they were uploaded from and revalidate by
+    object identity: every op REPLACES ``layer.pixels``/``layer.mask`` with
+    a fresh array and never writes one in place (an in-place writer would
+    be served the stale upload).  Because the entry pins the host array, a
+    recycled ``id()`` can never alias a dead buffer.  A weakref finalizer
+    evicts a layer's entries when the layer itself is garbage-collected
+    (renderer.rs frees textures for dropped layers, :427-447)."""
+
+    def __init__(self, device="cuda"):
+        from paintfe_tpu_torch.utils.device import resolve_device
+
+        self.device = resolve_device(device)
+        # (layer id, slot) -> (host array, device tensor, weakref)
+        self._cache: Dict[Tuple[int, str], Tuple[object, torch.Tensor, object]] = {}
+
+    def get(self, layer, slot: str = "pixels") -> torch.Tensor:
+        """Device tensor for `layer.pixels` (or `layer.mask` with
+        slot="mask"), uploading only when stale."""
+        host = layer.pixels if slot == "pixels" else layer.mask
+        key = (id(layer), slot)
+        hit = self._cache.get(key)
+        if hit is not None and hit[0] is host:
+            return hit[1]
+        dev = upload(host, self.device)
+        ref = weakref.ref(layer, lambda _, k=key, c=self._cache: c.pop(k, None))
+        self._cache[key] = (host, dev, ref)
+        return dev
+
+    def memory_bytes(self) -> int:
+        """Device-memory accounting (renderer.rs:953-965 analogue)."""
+        return sum(dev.numel() * dev.element_size() for _, dev, _ in self._cache.values())
+
+    def resident_count(self) -> int:
+        return len({lid for lid, _ in self._cache})
+
+
+def composite_device(canvas, cache: DeviceLayerCache) -> torch.Tensor:
+    """Composite with device-resident layers; returns a u8 [H, W, 4] tensor
+    on the cache's device (no readback — the composite_to_gpu analogue,
+    renderer.rs:805).  Bit-equal to Canvas.composite."""
+    dev = cache.device
+
+    def pixels(idx, layer):
+        px = cache.get(layer)
+        if idx == canvas.active_layer_index and canvas.preview is not None:
+            # the preview changes every frame: upload it, blend on the device
+            return canvas._apply_preview(px, upload(canvas.preview, dev))
+        return px
+
+    def conceal(layer):
+        return cache.get(layer, slot="mask")
+
+    return flatten(canvas, pixels, conceal, dev)
+
+
+def composite_dirty_rect(canvas, cache: DeviceLayerCache, prev: torch.Tensor, rect):
+    """Incremental recompute: re-composite only the dirty window and splice
+    it into the previous device-resident composite, which is updated in
+    place and returned.
+
+    The reference's interactive loop recomposites and reads back only the
+    dirty rect (canvas_state.rs:1511-1531 mark_dirty, renderer.rs:588).
+    Here the window of each cached layer is a contiguous copy handed to
+    K-composite, and the splice is a slice assignment.  Every pointwise
+    stage of the full composite applies identically on the window, so the
+    splice is bit-equal to a full recomposite.
+
+    rect = (x0, y0, x1, y1) inclusive; `prev` is a u8 [H, W, 4] tensor on
+    the cache's device.
+    """
+    x0, y0, x1, y1 = rect
+    x0 = max(int(x0), 0)
+    y0 = max(int(y0), 0)
+    x1 = min(int(x1), canvas.width - 1)
+    y1 = min(int(y1), canvas.height - 1)
+    if x1 < x0 or y1 < y0:
+        return prev
+    bh, bw = y1 - y0 + 1, x1 - x0 + 1
+    dev = cache.device
+
+    def window(t):
+        return t[y0:y0 + bh, x0:x0 + bw].contiguous()
+
+    def pixels(idx, layer):
+        px = window(cache.get(layer))
+        if idx == canvas.active_layer_index and canvas.preview is not None:
+            # upload only the preview's window, blend it on the device
+            return canvas._apply_preview(
+                px, upload(canvas.preview[y0:y0 + bh, x0:x0 + bw], dev))
+        return px
+
+    def conceal(layer):
+        return window(cache.get(layer, slot="mask"))
+
+    prev[y0:y0 + bh, x0:x0 + bw] = flatten(canvas, pixels, conceal, dev,
+                                           rect=(y0, x0, bh, bw))
+    return prev

@@ -1,24 +1,32 @@
-"""K-blur and K-median: the fused two-pass Gaussian blur and the window
-median, each a kernel with its plain version.
+"""K-blur, K-median, K-composite and K-pass: the fused two-pass Gaussian
+blur, the window median, the layer compositor and the single separable
+blur pass, each a kernel with its plain version.
 
 Counterparts of paintfe_tpu/ops/pallas_kernels.py's gaussian_blur_fused /
-gaussian_blur_fused_planar and median_pallas.  The kernels are hand-written
-CUDA for Hopper (csrc/gaussian_blur.cu, csrc/median.cu);
-`gaussian_blur_plain` and `median_plain` are the same computations in plain
-torch ops (the JAX package's _gaussian_fn, filters.py:96-114, and its
-Batcher network, filters.py:433-454).
+gaussian_blur_fused_planar, median_pallas, composite_stack_pallas and
+gaussian_blur_pallas.  The kernels are hand-written CUDA for Hopper
+(csrc/gaussian_blur.cu, csrc/median.cu, csrc/composite.cu,
+csrc/blur_pass.cu); `gaussian_blur_plain`, `median_plain`,
+`composite_stack_plain` and `gaussian_blur_pass_plain` are the same
+computations in plain torch ops (the JAX package's _gaussian_fn,
+filters.py:96-114, its Batcher network, filters.py:433-454, the fold of
+core/composite.composite_stack_static, and one pass of _conv_pass).
 
-`gaussian_blur_fused` and `median_kernel` launch their kernel for a CUDA
-tensor and take the plain version for a CPU tensor; every other case
-raises.  Each counts its launches in `<wrapper>.launches`.
+`gaussian_blur_fused`, `median_kernel`, `composite_stack_kernel` and
+`gaussian_blur_pass` launch their kernel for a CUDA tensor and take the
+plain version for a CPU tensor; every other case raises.  Each counts its
+launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
+import numpy as np
 import torch
 
+from paintfe_tpu_torch.core.blend import blend_u8, clip_opacity
 from paintfe_tpu_torch.ops.filters import _oddeven_merge_network, gaussian_kernel
 from paintfe_tpu_torch.utils.quant import round_u8
 
@@ -207,3 +215,186 @@ def median_kernel(img: torch.Tensor, r: int) -> torch.Tensor:
 
 
 median_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K-composite
+# ---------------------------------------------------------------------------
+
+# csrc/composite.cu's kMaxLayers: layers folded by one launch
+COMPOSITE_CHUNK = 32
+
+
+def as_u8_tensor(x):
+    """A tensor as it is; a u8 numpy array as a tensor on the CPU; None as
+    None."""
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x, np.uint8))
+
+
+def layer_list(layers) -> list:
+    """A stack ([N, ...] tensor or array) or a sequence of tensors, arrays
+    or None, as a list of tensors (or None)."""
+    if isinstance(layers, (list, tuple)):
+        return [as_u8_tensor(t) for t in layers]
+    return list(as_u8_tensor(layers).unbind(0))
+
+
+def host_values(values, dtype) -> list:
+    """Per-layer values (a sequence, array or tensor) as a host list of
+    Python numbers of `dtype` (np.float32 values stay exact)."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    return np.asarray(values, dtype).reshape(-1).tolist()
+
+
+def composite_stack_plain(layers, modes, opacities, conceal=None, init=None):
+    """Plain torch fold of u8 layers bottom-up over `init` (transparent when
+    None): each layer's alpha scaled by its conceal mask in integer math
+    (a * (255 - m) // 255; a None mask is no mask), then blend_u8 with its
+    mode and opacity.  `layers` is [N, H, W, 4] or a sequence of [H, W, 4];
+    `conceal` is None, [N, H, W] or a sequence of [H, W] or None."""
+    layers = layer_list(layers)
+    masks = [None] * len(layers) if conceal is None else layer_list(conceal)
+    acc = as_u8_tensor(init) if init is not None else torch.zeros_like(layers[0])
+    for px, mask, mode, opacity in zip(layers, masks, host_values(modes, np.int64),
+                                       host_values(opacities, np.float32)):
+        if mask is not None:
+            a = px[..., 3].int() * (255 - mask.int()) // 255
+            px = torch.cat([px[..., :3], a.to(torch.uint8)[..., None]], dim=-1)
+        acc = blend_u8(acc, px, mode, opacity)
+    return acc
+
+
+def _check_plane(t: torch.Tensor, name: str, like: torch.Tensor):
+    if (t.device != like.device or t.dtype != torch.uint8
+            or tuple(t.shape) != tuple(like.shape[:2]) or not t.is_contiguous()):
+        raise ValueError(f"composite_stack_kernel: {name} must be a contiguous "
+                         f"u8 {tuple(like.shape[:2])} tensor on {like.device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def composite_stack_kernel(layers, modes, opacities, conceal=None, init=None):
+    """Fold u8 layers bottom-up over `init` (K-composite): the contract of
+    composite_stack_plain, on the layers' device.  Stacks longer than
+    COMPOSITE_CHUNK layers fold in chunks, one launch each."""
+    layers = layer_list(layers)
+    if not layers:
+        raise ValueError("composite_stack_kernel: no layers")
+    first, init = layers[0], as_u8_tensor(init)
+    if first.device.type == "cpu":
+        return composite_stack_plain(layers, modes, opacities, conceal, init)
+    modes = host_values(modes, np.int64)
+    opacities = [clip_opacity(o) for o in host_values(opacities, np.float32)]
+    masks = [None] * len(layers) if conceal is None else layer_list(conceal)
+    if not len(modes) == len(opacities) == len(masks) == len(layers):
+        raise ValueError("composite_stack_kernel: layers, modes, opacities "
+                         "and conceal differ in length")
+    if any(not 0 <= m <= 24 for m in modes):
+        raise ValueError(f"composite_stack_kernel: blend mode out of range in {modes}")
+    check_rgba_u8(first, "composite_stack_kernel", ndims=(3,))
+    for t in layers[1:] + ([init] if init is not None else []):
+        check_rgba_u8(t, "composite_stack_kernel", ndims=(3,))
+        if t.device != first.device or t.shape != first.shape:
+            raise ValueError(f"composite_stack_kernel: {tuple(t.shape)} on "
+                             f"{t.device} differs from {tuple(first.shape)} "
+                             f"on {first.device}")
+    for m in masks:
+        if m is not None:
+            _check_plane(m, "conceal", first)
+    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+
+    h, w = first.shape[:2]
+    acc = init
+    if h * w == 0:
+        return torch.empty_like(first)
+    lib = load_library()
+    with torch.cuda.device(first.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for s in range(0, len(layers), COMPOSITE_CHUNK):
+            e = min(s + COMPOSITE_CHUNK, len(layers))
+            n = e - s
+            out = torch.empty_like(first)
+            ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in layers[s:e]])
+            cptrs = (ctypes.c_void_p * n)(
+                *[None if m is None else m.data_ptr() for m in masks[s:e]])
+            rc = lib.pfe_composite(
+                ptrs, cptrs, (ctypes.c_int * n)(*modes[s:e]),
+                (ctypes.c_float * n)(*opacities[s:e]), n,
+                None if acc is None else acc.data_ptr(), out.data_ptr(),
+                h * w, stream)
+            check(rc, "composite_stack_kernel")
+            composite_stack_kernel.launches += 1
+            acc = out
+    return acc
+
+
+composite_stack_kernel.launches = 0
+
+
+def composite_stack_pallas(layers, modes, opacities):
+    """composite_stack_pallas's contract (pallas_kernels.py:257): the fold
+    with no conceal and a transparent start, on K-composite."""
+    return composite_stack_kernel(layers, modes, opacities)
+
+
+# ---------------------------------------------------------------------------
+# K-pass
+# ---------------------------------------------------------------------------
+
+
+def gaussian_blur_pass_plain(x: torch.Tensor, taps) -> torch.Tensor:
+    """Plain torch edge-clamped pass along the last axis of f32 [..., W]:
+    out[..., i] = sum over k in order of x[..., clamp(i + k - r)] * taps[k],
+    summed from 0."""
+    taps = np.asarray(taps, np.float32)
+    r = len(taps) // 2
+    w = x.shape[-1]
+    cols = torch.arange(w, device=x.device)
+    acc = torch.zeros_like(x)
+    for k, t in enumerate(taps):
+        acc = acc + x.index_select(-1, torch.clamp(cols + (k - r), 0, w - 1)) * float(t)
+    return acc
+
+
+def gaussian_blur_pass(x: torch.Tensor, taps) -> torch.Tensor:
+    """One edge-clamped separable pass along the last axis of a contiguous
+    f32 [C, H, W] tensor with f32 taps (K-pass)."""
+    if x.device.type == "cpu":
+        return gaussian_blur_pass_plain(x, taps)
+    taps = np.asarray(taps, np.float32)
+    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("gaussian_blur_pass: expected a contiguous f32 [C, H, W] "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    if taps.ndim != 1 or len(taps) % 2 == 0:
+        raise ValueError(f"gaussian_blur_pass: expected an odd tap count, got {taps.shape}")
+    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+
+    out = torch.empty_like(x)
+    c, h, w = x.shape
+    if x.numel() == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        taps_dev = torch.from_numpy(taps).to(x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pfe_blur_pass(x.data_ptr(), taps_dev.data_ptr(), out.data_ptr(),
+                               c * h, w, len(taps), stream)
+    check(rc, "gaussian_blur_pass")
+    gaussian_blur_pass.launches += 1
+    return out
+
+
+gaussian_blur_pass.launches = 0
+
+
+def gaussian_blur_pallas(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable Gaussian of u8 [H, W, C] through two K-pass launches
+    (pallas_kernels.py:98-110): H pass on the planar f32 image, transpose,
+    V pass, transpose back, round half up."""
+    taps = gaussian_kernel(float(sigma))
+    planar = img.float().permute(2, 0, 1).contiguous()  # [C, H, W]
+    hbuf = gaussian_blur_pass(planar, taps)
+    vbuf = gaussian_blur_pass(hbuf.transpose(1, 2).contiguous(), taps)  # [C, W, H]
+    return round_u8(vbuf.permute(2, 1, 0))

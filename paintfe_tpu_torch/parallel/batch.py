@@ -165,8 +165,9 @@ def run_sharded_batch(inputs: List[pathlib.Path], args, fmt: str,
             loaded.pop(i)
             save_one(i, out[k])
 
-    # Layered containers need the canvas path, which run_one reports as
-    # not yet ported.
+    # Layered containers need the full canvas path (script on the active
+    # layer, canvas-op replay, flatten): the serial runner handles them
+    # with identical semantics.
     flat_idxs = []
     for idx, p in enumerate(inputs):
         if pathlib.Path(p).suffix.lower() in (".pfe", ".pdn"):

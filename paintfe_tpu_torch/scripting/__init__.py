@@ -9,6 +9,7 @@ tests/test_torch_scripting.py guards them against drift.
 from paintfe_tpu_torch.scripting.api import CanvasOpRequest, ScriptContext  # noqa: F401
 from paintfe_tpu_torch.scripting.engine import (  # noqa: F401
     ScriptError,
+    apply_canvas_ops,
     compile_script,
     execute_script_sync,
 )

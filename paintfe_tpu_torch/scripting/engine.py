@@ -4,6 +4,8 @@ Behavioral contract: scripting.rs:1489-1821 — `compile_script`,
 `execute_script_sync(source, pixels, w, h, mask) -> (pixels, w, h, console,
 canvas_ops)`; ScriptError carries a message plus best-effort line/column.
 `execute_script_sync` takes a torch `device` for the device-side ops.
+`apply_canvas_ops` replays canvas-wide requests on the other layers
+(scripting.rs:1640-1723).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from paintfe_tpu_torch.errors import NotYetPorted
+from paintfe_tpu_torch.ops import transform as tfm
 from paintfe_tpu_torch.scripting.api import CanvasOpRequest, ScriptContext, build_host_fns
 from paintfe_tpu_torch.scripting.interp import Interpreter, RhaiRuntimeError
 from paintfe_tpu_torch.scripting.rhai_ast import RhaiSyntaxError, parse
@@ -137,3 +141,45 @@ def _run_script(interp: Interpreter, source: str):
         runner(interp)
     else:
         interp.run(source)
+
+
+_LAYER_OPS = {
+    "flip_h": tfm.flip_horizontal, "flip_v": tfm.flip_vertical,
+    "rot90cw": tfm.rotate_90cw, "rot90ccw": tfm.rotate_90ccw,
+    "rot180": tfm.rotate_180,
+}
+
+
+def apply_canvas_ops(canvas, ops: List[CanvasOpRequest], skip_layer: int):
+    """Replay canvas-wide ops on every layer except `skip_layer` (which
+    already received them inside the script), then fix canvas dims
+    (scripting.rs:1640-1723).  The flips and rotations the port's script
+    API emits are ported; the resize kinds raise NotYetPorted."""
+    for op in ops:
+        fn = _LAYER_OPS.get(op.kind)
+        if fn is None:
+            raise NotYetPorted(f"canvas op '{op.kind}' is not yet ported to "
+                               "paintfe_tpu_torch")
+        for idx, layer in enumerate(canvas.layers):
+            if idx != skip_layer:
+                layer.pixels = fn(layer.pixels)
+        if op.kind in ("rot90cw", "rot90ccw"):
+            canvas.width, canvas.height = canvas.height, canvas.width
+        # The reference's apply_canvas_ops never touches the selection; the
+        # dense [H, W] selection only goes when the dimensions changed and
+        # its stale shape would crash downstream consumers.
+        if canvas.selection is not None and canvas.selection.shape[:2] != (
+                canvas.height, canvas.width):
+            canvas.selection = None
+        # Layer masks likewise: the reference's mask is a sparse TiledImage
+        # whose out-of-bounds reads yield 0, so a dimension change leaves
+        # stale masks readable (absent = 0).  Reproduce that with a
+        # zero-pad/crop to the new dims.
+        for layer in canvas.layers:
+            m = layer.mask
+            if m is not None and m.shape[:2] != (canvas.height, canvas.width):
+                fixed = np.zeros((canvas.height, canvas.width), m.dtype)
+                ch = min(m.shape[0], canvas.height)
+                cw = min(m.shape[1], canvas.width)
+                fixed[:ch, :cw] = m[:ch, :cw]
+                layer.mask = fixed

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # C entry points: name -> argtypes; each returns cudaGetLastError() as int.
 _SIGNATURES = {
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "pfe_chain_tail": (_P, _P, _P, _I, _I, _P, _P, _P),
     "pfe_median": (_P, _P, _I, _I, _I, _I, _I, _P),
     "pfe_warp_bilinear": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pfe_composite": (_P, _P, _P, _P, _I, _P, _P, _L, _P),
+    "pfe_blur_pass": (_P, _P, _P, _L, _I, _I, _P),
 }
 
 # What load_library() did in this process: its seconds (nvcc's build

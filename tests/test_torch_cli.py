@@ -112,7 +112,6 @@ def test_one_bad_input_fails_the_run_but_not_the_others(inputs, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--animate", "a.gif"], "--animate is not yet ported"),
     (["--trace-dir", "tr"], "--trace-dir is not yet ported"),
-    (["-f", "pfe"], ".pfe output is not yet ported"),
 ])
 def test_unported_options_report_per_input(inputs, capsys, argv, match):
     base = ["-i", str(inputs / "in0.png"), "--output-dir", str(inputs / "o"),
@@ -122,7 +121,7 @@ def test_unported_options_report_per_input(inputs, capsys, argv, match):
 
 
 def test_layered_and_16_bit_inputs_report_not_yet_ported(inputs, capsys):
-    (inputs / "doc.pfe").write_bytes(b"\0" * 16)
+    (inputs / "doc.pdn").write_bytes(b"\0" * 16)
     deep = (np.arange(64 * 3, dtype=np.uint16).reshape(8, 8, 3) * 300)
     # a 16-bit RGB PNG written by hand: PIL writes 16-bit only for gray
     import struct
@@ -138,12 +137,12 @@ def test_layered_and_16_bit_inputs_report_not_yet_ported(inputs, capsys):
         b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, 16, 2, 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
     for shard in ([], ["--shard"]):
-        argv = ["-i", str(inputs / "doc.pfe"), str(inputs / "deep.png"),
+        argv = ["-i", str(inputs / "doc.pdn"), str(inputs / "deep.png"),
                 str(inputs / "in0.png"), "--output-dir", str(inputs / "o"),
                 "--device", "cpu", *shard]
         assert tcli.main(argv) == 1
         err = capsys.readouterr().err
-        assert ".pfe input" in err and "16-bit input" in err
+        assert ".pdn input" in err and "16-bit input" in err
         assert (inputs / "o" / "in0.png").exists()
 
 
@@ -161,6 +160,7 @@ def test_profile_prints_stage_times(inputs, capsys):
     out = capsys.readouterr().out
     for stage in ("load:", "script:", "encode:", "[script] done"):
         assert stage in out
+    assert "flatten:" not in out  # a one-layer image skips the compositor
 
 
 def test_device_cuda_without_a_card_exits_nonzero(inputs, capsys):
@@ -187,3 +187,115 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+# -- layered documents (.pfe in, flatten, PNG / .pfe out) ---------------------
+
+LAYERED = "apply_blur(2.0); rotate_canvas_180(); flip_canvas_horizontal();"
+
+
+def _write_documents(d):
+    """A V1 document (raster layers, one hidden) and a V3 one (adjustment
+    layers, a hidden folder, empty 64 px tiles), written by the JAX
+    package's save_pfe."""
+    from paintfe_tpu.core import canvas as jcanvas
+    from paintfe_tpu.core import deep as jdeep
+    from paintfe_tpu.io import pfe as jpfe
+
+    rng = np.random.default_rng(77)
+    h, w = 70, 96
+
+    def raster(name, mode, opacity, folder=None):
+        layer = jcanvas.Layer.new(name, w, h)
+        px = rng.integers(0, 256, (h, w, 4), np.uint8)
+        px[:64, 64:] = 0  # an empty tile in every raster layer
+        layer.pixels = jcanvas.canonicalize_tiles(px)
+        layer.blend_mode, layer.opacity, layer.folder_id = mode, opacity, folder
+        return layer
+
+    def adjustment(name, opacity, **kw):
+        layer = jcanvas.Layer.new(name, w, h)
+        layer.content = "adjustment"
+        layer.adjustment = jdeep.AdjustmentLayerData(**kw)
+        layer.opacity = opacity
+        return layer
+
+    v1 = jcanvas.Canvas(width=w, height=h)
+    v1.layers = [raster("bg", 0, 1.0), raster("mul", 1, 0.7), raster("off", 2, 1.0),
+                 raster("soft", 16, 0.8)]
+    v1.layers[2].visible = False
+    v1.active_layer_index = 1
+    jpfe.save_pfe(v1, str(d / "v1doc.pfe"))
+
+    v3 = jcanvas.Canvas(width=w, height=h)
+    v3.folders = [jcanvas.LayerFolder(id=1, name="hidden", visible=False)]
+    v3.layers = [raster("bg", 0, 1.0), raster("mul", 1, 0.7), raster("soft", 16, 1.0),
+                 adjustment("bc", 0.6, kind=1, brightness=10.0, contrast=25.0),
+                 raster("screen", 2, 1.0), raster("ghost", 9, 1.0, folder=1),
+                 adjustment("inv", 0.3, kind=2)]
+    v3.active_layer_index = 2
+    jpfe.save_pfe(v3, str(d / "v3doc.pfe"))
+    return ["v1doc", "v3doc"]
+
+
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("fmt", ["png", "pfe"])
+@pytest.mark.parametrize("script", [LAYERED, "apply_median(1); rotate_canvas_90cw();"])
+def test_layered_documents_match_jax_cli(inputs, shard, fmt, script):
+    """V1 and V3 documents (adjustment layers, a hidden folder) through both
+    CLIs, serially and with --shard, to PNG and to .pfe: the same bytes."""
+    names = _write_documents(inputs)
+    (inputs / "doc.rhai").write_text(script)
+    common = ["-i", str(inputs / "*.pfe"), str(inputs / "in2.png"),
+              "-s", str(inputs / "doc.rhai"), "-f", fmt]
+    extra = ["--shard"] if shard else []
+    jrc = jcli.main(common + ["--output-dir", str(inputs / "jax"), *extra])
+    trc = tcli.main(common + ["--output-dir", str(inputs / "port"), "--device", "cpu", *extra])
+    assert trc == jrc == 0
+    ref = sorted(p.name for p in (inputs / "jax").iterdir())
+    assert sorted(p.name for p in (inputs / "port").iterdir()) == ref
+    assert {f"{n}.{fmt}" for n in names} <= set(ref)
+    for name in ref:
+        assert (inputs / "port" / name).read_bytes() == (inputs / "jax" / name).read_bytes(), name
+
+
+def test_no_flatten_writes_the_active_layer(inputs):
+    _write_documents(inputs)
+    common = ["-i", str(inputs / "v3doc.pfe"), "-s", str(inputs / "fx.rhai"),
+              "--no-flatten", "-f", "png"]
+    assert jcli.main(common + ["--output-dir", str(inputs / "jax")]) == 0
+    assert tcli.main(common + ["--output-dir", str(inputs / "port"), "--device", "cpu"]) == 0
+    assert ((inputs / "port" / "v3doc.png").read_bytes()
+            == (inputs / "jax" / "v3doc.png").read_bytes())
+
+
+def test_layered_profile_times_the_flatten(inputs, capsys):
+    _write_documents(inputs)
+    assert tcli.main(["-i", str(inputs / "v3doc.pfe"), "-s", str(inputs / "fx.rhai"),
+                      "--output-dir", str(inputs / "o"), "--device", "cpu",
+                      "--profile"]) == 0
+    out = capsys.readouterr().out
+    for stage in ("load:", "script:", "flatten:", "encode:"):
+        assert stage in out
+
+
+@pytest.mark.parametrize("shard", [False, True])
+def test_text_layers_and_pdn_report_not_yet_ported(inputs, capsys, shard):
+    from paintfe_tpu.core import canvas as jcanvas
+    from paintfe_tpu.io import pfe as jpfe
+    from paintfe_tpu.ops.text_layer import TextLayerData
+
+    doc = jcanvas.Canvas.new(20, 10)
+    doc.layers.append(jcanvas.Layer.new("words", 20, 10))
+    doc.layers[1].content = "text"
+    doc.layers[1].text_data = TextLayerData()
+    jpfe.save_pfe(doc, str(inputs / "text.pfe"))
+    (inputs / "doc.pdn").write_bytes(b"PDN3" + b"\0" * 12)
+    argv = ["-i", str(inputs / "text.pfe"), str(inputs / "doc.pdn"), str(inputs / "in0.png"),
+            "--output-dir", str(inputs / "o"), "--device", "cpu"]
+    assert tcli.main(argv + (["--shard"] if shard else [])) == 1
+    err = capsys.readouterr().err
+    assert "text layer 'words' is not yet ported" in err
+    assert ".pdn input" in err and "not yet ported" in err
+    assert (inputs / "o" / "in0.png").exists()
+    assert not (inputs / "o" / "text.png").exists()

@@ -156,3 +156,133 @@ def test_spatial_run_batch_on_the_card_equals_the_cpu(dev):
     images = _img((3, 40, 56), 14, "cpu").numpy()
     assert np.array_equal(pipeline.run_batch(images, ops, dev),
                           pipeline.run_batch(images, ops, "cpu"))
+
+
+def _stack(n, shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    layers = rng.integers(0, 256, (n,) + tuple(shape) + (4,), np.uint8)
+    layers[:, :3, :, 3] = 0
+    layers[:, 3:6, :, 3] = 255
+    conceal = rng.integers(0, 256, (n,) + tuple(shape), np.uint8)
+    init = rng.integers(0, 256, tuple(shape) + (4,), np.uint8)
+    return (torch.from_numpy(layers).to(dev), torch.from_numpy(conceal).to(dev),
+            torch.from_numpy(init).to(dev))
+
+
+@pytest.mark.parametrize("opacity", [0.0, 0.37, 1.0, 1.5])
+@pytest.mark.parametrize("mode", range(25))
+def test_composite_kernel_equals_plain_every_mode(dev, mode, opacity):
+    layers, conceal, init = _stack(3, (37, 53), mode, dev)
+    modes, opac = (0, mode, 16), (1.0, opacity, 0.6)
+    for c, i in ((None, None), (conceal, None), (None, init), (conceal, init)):
+        before = kernels.composite_stack_kernel.launches
+        out = kernels.composite_stack_kernel(layers, modes, opac, c, i)
+        assert kernels.composite_stack_kernel.launches == before + 1
+        assert torch.equal(out, kernels.composite_stack_plain(layers, modes, opac, c, i))
+
+
+@pytest.mark.parametrize("n", [1, 6, 40])
+def test_composite_kernel_folds_long_stacks_in_chunks(dev, n):
+    layers, conceal, init = _stack(n, (45, 70), 100 + n, dev)
+    rng = np.random.default_rng(n)
+    modes = rng.integers(0, 25, n).tolist()
+    opac = rng.random(n).astype(np.float32)
+    masks = [m if k % 2 else None for k, m in enumerate(conceal)]
+    before = kernels.composite_stack_kernel.launches
+    out = kernels.composite_stack_kernel(list(layers), modes, opac, masks, init)
+    assert kernels.composite_stack_kernel.launches == before + -(-n // kernels.COMPOSITE_CHUNK)
+    assert torch.equal(out, kernels.composite_stack_plain(list(layers), modes, opac, masks, init))
+
+
+def test_composite_kernel_refuses_bad_tensors(dev):
+    layers, conceal, _ = _stack(2, (16, 20), 5, dev)
+    with pytest.raises(ValueError, match="conceal"):
+        kernels.composite_stack_kernel(layers, (0, 1), (1, 1), conceal[:, :8])
+    with pytest.raises(ValueError, match="differs"):
+        kernels.composite_stack_kernel([layers[0], layers[1, :8].contiguous()], (0, 1), (1, 1))
+    with pytest.raises(ValueError, match="mode"):
+        kernels.composite_stack_kernel(layers, (0, 25), (1, 1))
+
+
+@pytest.mark.parametrize("sigma", [0.5, 2.0, 8.0, 25.0])
+@pytest.mark.parametrize("shape", [(1, 1), (37, 53), (70, 45)])
+def test_blur_pass_kernel_equals_plain(dev, shape, sigma):
+    img = _img(shape, 15, dev)
+    before = kernels.gaussian_blur_pass.launches
+    out = kernels.gaussian_blur_pallas(img, sigma)
+    assert kernels.gaussian_blur_pass.launches == before + 2
+    assert torch.equal(out, kernels.gaussian_blur_pallas(img.cpu(), sigma).to(dev))
+    assert torch.equal(out, kernels.gaussian_blur_plain(img, sigma))
+
+
+def test_canvas_composite_on_the_card_equals_the_cpu(dev):
+    from paintfe_tpu_torch.core import canvas as C
+    from paintfe_tpu_torch.core import deep
+    from paintfe_tpu_torch.core.device import (DeviceLayerCache, composite_device,
+                                               composite_dirty_rect)
+
+    rng = np.random.default_rng(16)
+    doc = C.Canvas(width=150, height=130)
+    doc.folders = [C.LayerFolder(1, "hidden", visible=False)]
+    for k, mode in enumerate((0, 1, 16, None, 2, 9)):
+        layer = C.Layer.new(f"L{k}", 150, 130)
+        if mode is None:
+            layer.content = "adjustment"
+            layer.adjustment = deep.AdjustmentLayerData(kind=deep.AdjustmentKind.BRIGHTNESS_CONTRAST,
+                                                        brightness=10.0, contrast=20.0)
+            layer.opacity = 0.6
+        else:
+            layer.pixels = rng.integers(0, 256, (130, 150, 4), np.uint8)
+            layer.pixels[64:128, 64:128] = 0
+            layer.blend_mode = C.BlendMode(mode)
+            layer.opacity = 0.7 if k == 1 else 1.0
+        doc.layers.append(layer)
+    doc.layers[5].folder_id = 1
+    doc.layers[1].mask = rng.integers(0, 256, (130, 150), np.uint8)
+    before = kernels.composite_stack_kernel.launches
+    got = doc.composite(device=dev)
+    assert kernels.composite_stack_kernel.launches == before + 2  # two raster runs
+    want = doc.composite(device="cpu")
+    assert np.array_equal(got, want)
+    cache = DeviceLayerCache(dev)
+    full = composite_device(doc, cache)
+    assert np.array_equal(full.cpu().numpy(), want)
+    px = doc.layers[2].pixels.copy()
+    px[10:40, 20:90] = 9
+    doc.layers[2].pixels = px
+    updated = composite_dirty_rect(doc, cache, full, (20, 10, 89, 39))
+    assert np.array_equal(updated.cpu().numpy(), doc.composite(device="cpu"))
+
+
+@pytest.mark.parametrize("preview", [(0, "blend"), (1, "blend"), (13, "blend"),
+                                     (14, "blend"), (0, "eraser"), (0, "replace")])
+def test_preview_composite_on_the_card_equals_the_cpu(dev, preview):
+    from paintfe_tpu_torch.core import canvas as C
+    from paintfe_tpu_torch.core.device import (DeviceLayerCache, composite_device,
+                                               composite_dirty_rect)
+
+    rng = np.random.default_rng(17)
+    doc = C.Canvas(width=150, height=130)
+    for k, mode in enumerate((0, 16, 2)):
+        layer = C.Layer.new(f"L{k}", 150, 130)
+        layer.pixels = rng.integers(0, 256, (130, 150, 4), np.uint8)
+        layer.blend_mode = C.BlendMode(mode)
+        doc.layers.append(layer)
+    doc.active_layer_index = 1
+    pv = np.zeros((130, 150, 4), np.uint8)
+    pv[10:60, 20:90] = rng.integers(0, 256, (50, 70, 4), np.uint8)
+    doc.preview = pv
+    doc.preview_blend_mode = C.BlendMode(preview[0])
+    doc.preview_is_eraser = preview[1] == "eraser"
+    doc.preview_replaces_layer = preview[1] == "replace"
+    want = doc.composite(device="cpu")
+    assert np.array_equal(doc.composite(device=dev), want)
+    cache = DeviceLayerCache(dev)
+    full = composite_device(doc, cache)
+    assert full.device.type == "cuda"
+    assert np.array_equal(full.cpu().numpy(), want)
+    moved = np.zeros_like(pv)
+    moved[60:100, 30:80] = rng.integers(0, 256, (40, 50, 4), np.uint8)
+    doc.preview = moved
+    updated = composite_dirty_rect(doc, cache, full, (10, 5, 120, 110))
+    assert np.array_equal(updated.cpu().numpy(), doc.composite(device="cpu"))
