@@ -8,9 +8,11 @@ It builds the port's CUDA kernels from csrc/, then:
 
   1. holds each kernel against its plain version on the card, byte for
      byte (tolerance 0), over several radii, fields, modes and shapes:
-     K-blur (csrc/gaussian_blur.cu) against gaussian_blur_plain, K-chain
-     (csrc/fused_chain.cu) against the plain fused_chain, K-median
-     (csrc/median.cu) against median_plain, K-warp (csrc/warp_bilinear.cu)
+     K-blur (csrc/gaussian_blur.cu) against gaussian_blur_plain (with the
+     radii at each limit of its tile geometry), K-chain (csrc/fused_chain.cu)
+     against the plain fused_chain, K-median (csrc/median.cu) against
+     median_plain (every network radius, the first counting one, images
+     smaller than the window), K-warp (csrc/warp_bilinear.cu)
      in both modes against gather_bilinear_plain, K-composite
      (csrc/composite.cu) against composite_stack_plain over all 25 blend
      modes, opacities, conceal masks and initial accumulators, and K-pass
@@ -39,9 +41,12 @@ It builds the port's CUDA kernels from csrc/, then:
      kernel must have launched exactly as often as the path needs (a
      --shard bucket that fell back to the per-image path would launch its
      kernels once per image; K-composite launches once per raster run);
-  3. times each kernel beside its plain version at 3840x2160 with CUDA
-     events (median of 15 runs after warm-up), and beside one PyTorch call
-     computing the same function where there is one.
+  3. times K-median at several radii, K-blur at several sigmas (one frame
+     and a batch) and K-chain, then each kernel beside its plain version at
+     3840x2160 and beside one PyTorch call computing the same function
+     where there is one, and each route beside its neighbour at the radii
+     where ops/kernels.py hands over: CUDA events around one call, median
+     of 15 samples after warm-up.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}.  Any failed
@@ -75,13 +80,51 @@ TIMED_RUNS = 15
 # (beside two 1920x1080 ones)
 SERIAL_UHD = 3
 SHARD_UHD = 6
-# K-median checks, (shape, radius): r = 110 takes the global route
-MEDIAN_CHECKS = ([(shape, r) for shape in [(37, 53), (257, 511), UHD] for r in (1, 2, 4)]
-                 + [((257, 511), 40), ((37, 53), 110)])
-# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
+# K-median's timed radii at 3840x2160 (r = 40 and 110: its staged and
+# global counting routes), and K-blur's timed sigmas, one frame and a batch
+# of BATCH frames (sigma 60, r = 180: the split route)
+MEDIAN_RADII = (1, 2, 3, 4, 8, 40, 110)
+BLUR_SIGMAS = (0.5, 2.0, 8.0, 25.0, 60.0)
+BATCH = 4
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM, and
+# f32 without FMA contraction — every kernel builds with -fmad=false, so a
+# multiply and an add are two instructions: 132 SMs x 128 lanes x 1.98 GHz
+F32_OPS_PER_S = 33.5e12
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-INT8_OPS_PER_S = 1979e12
+# byte operations of the CUDA cores' packed-integer pipe: 16.7e12 INT32
+# instructions a second (132 SMs x 64 lanes x 1.98 GHz), four bytes each
+PACKED_BYTE_OPS_PER_S = 66.9e12
+
+
+def _median_checks():
+    """K-median checks, (shape, radius): every network radius and the first
+    counting one, on shapes that are not a multiple of the 128 x 16 tile and
+    on images smaller than the window; r = 40 takes the staged route and
+    r = 110 the global one."""
+    from paintfe_tpu_torch.ops.kernels import MEDIAN_NETWORK_MAX_R
+
+    net = range(1, MEDIAN_NETWORK_MAX_R + 2)
+    return ([(shape, r) for shape in [(37, 53), (257, 511)] for r in net]
+            + [(UHD, r) for r in (1, 2, 4)]
+            + [(shape, r) for shape in [(1, 1), (2, 7), (5, 3)]
+               for r in (1, MEDIAN_NETWORK_MAX_R, MEDIAN_NETWORK_MAX_R + 1)]
+            + [((257, 511), 40), ((37, 53), 110)])
+
+
+def _blur_limit_sigmas():
+    """Sigmas whose radius meets each limit of K-blur's tile geometry: the
+    last radius of the short tile and the first of the long one, the last
+    radius whose source rows are staged at once and the first staged in
+    chunks, the last tiled radius and the first split one."""
+    from paintfe_tpu_torch.ops.kernels import (BLUR_SHORT_MAX_R, BLUR_TILE_H,
+                                               blur_chunk_rows, blur_tile_rows)
+
+    radii = range(0, 300)
+    chunked = next(r for r in radii if blur_chunk_rows(BLUR_TILE_H, r) < BLUR_TILE_H + 2 * r)
+    split = next(r for r in radii if blur_tile_rows(r) == 0)
+    # ceil(3 * (r - 0.5) / 3) == r
+    return [(r - 0.5) / 3 for r in (BLUR_SHORT_MAX_R, BLUR_SHORT_MAX_R + 1, chunked - 1,
+                                    chunked, split - 1, split)]
 
 
 class CheckFailed(Exception):
@@ -158,7 +201,8 @@ def _compare(name, got, want, errs, quiet=False):
 
 
 def check_blur(dev, gen, errs):
-    from paintfe_tpu_torch.ops.kernels import (gaussian_blur_fused,
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+    from paintfe_tpu_torch.ops.kernels import (blur_tile_rows, gaussian_blur_fused,
                                                gaussian_blur_plain)
 
     print("K-blur vs gaussian_blur_plain (byte-equal):")
@@ -168,12 +212,15 @@ def check_blur(dev, gen, errs):
             _compare(f"sigma={sigma} {shape[1]}x{shape[0]}",
                      gaussian_blur_fused(img, sigma),
                      gaussian_blur_plain(img, sigma), errs)
-    # radius 240: no 8-row tile fits shared memory, the split kernels run
+    # radius 240 (split route), and the radii at each tile-geometry limit
     for shape in [(37, 53), (257, 511)]:
         img = _rand(gen, shape, dev)
-        _compare(f"sigma=80 (split route) {shape[1]}x{shape[0]}",
-                 gaussian_blur_fused(img, 80.0), gaussian_blur_plain(img, 80.0),
-                 errs)
+        for sigma in [80.0] + _blur_limit_sigmas():
+            r = len(gaussian_kernel(sigma)) // 2
+            th = blur_tile_rows(r)
+            _compare(f"sigma={sigma:.4f} r={r} ({f'{th}-row tile' if th else 'split'}) "
+                     f"{shape[1]}x{shape[0]}", gaussian_blur_fused(img, sigma),
+                     gaussian_blur_plain(img, sigma), errs)
     batch = _rand(gen, (4,) + UHD, dev)
     for sigma in (2.0, 25.0):
         _compare(f"sigma={sigma} batch [4,2160,3840,4]",
@@ -213,7 +260,7 @@ def check_median(dev, gen, errs):
     from paintfe_tpu_torch.ops.kernels import median_kernel, median_plain, median_route
 
     print("K-median vs median_plain (byte-equal):")
-    for shape, r in MEDIAN_CHECKS:
+    for shape, r in _median_checks():
         img = _rand(gen, shape, dev)
         _compare(f"r={r} ({median_route(r)} route) {shape[1]}x{shape[0]}",
                  median_kernel(img, r), median_plain(img, r), errs)
@@ -751,6 +798,9 @@ def profile_flatten(dev, doc):
 
 
 def _time_ms(fn, runs=TIMED_RUNS):
+    """One call's time in ms: the median of `runs` samples after warm-up,
+    each a pair of CUDA events around one call (so the host's time from the
+    first event to the launch counts)."""
     import torch
 
     for _ in range(3):
@@ -765,6 +815,31 @@ def _time_ms(fn, runs=TIMED_RUNS):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _queued_ms(fn, one_ms, runs=TIMED_RUNS):
+    """One call's device time when calls queue back to back, in ms: the
+    median of `runs` samples, each CUDA events around n calls divided by n,
+    n such that they take about 2 ms (at most 20), so that the host's time
+    before a launch overlaps the calls ahead of it.  A printed figure
+    beside _time_ms's, labelled "queued"; `one_ms` (_time_ms's) comes back
+    unmeasured where one call takes over 1 ms."""
+    import torch
+
+    n = min(20, int(2.0 / one_ms))
+    if n < 2:
+        return one_ms
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
 
 
@@ -785,10 +860,127 @@ def _bound(nbytes, ops, ops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _chain_ops(ov, nt, px):
+    """f32 operations of K-chain on this overlay: the blur's two passes of
+    nt multiplies and adds on 4 channels, then the tail: 36 operations a
+    pixel, 55 more where the overlay is not clear (its soft-light
+    Porter-Duff)."""
+    return 4 * nt * 4 * px + 36 * px + 55 * int((ov[..., 3] != 0).sum())
+
+
+def time_cases(dev, gen, card):
+    """K-median at MEDIAN_RADII, K-blur at BLUR_SIGMAS on one 3840x2160
+    frame and on a batch of BATCH, and K-chain at sigma 2, each the median
+    of TIMED_RUNS CUDA-event timings of one call beside its bound, and its
+    queued device time (_queued_ms).  Prints one line a case and returns
+    them as dicts."""
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+    from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
+    from paintfe_tpu_torch.ops.kernels import (gaussian_blur_fused, median_kernel,
+                                               median_route)
+
+    h, w = UHD
+    px = h * w
+    frame = px * 4
+    img = _rand(gen, UHD, dev)
+    batch = _rand(gen, (BATCH,) + UHD, dev)
+    ov = _overlay(gen, UHD, dev)
+    cases = []
+    for r in MEDIAN_RADII:
+        # a selection reads each of the (2r+1)^2 window values of each channel
+        cases.append((f"K-median r={r} ({median_route(r)} route) 3840x2160",
+                      lambda r=r: median_kernel(img, r),
+                      _bound(2 * frame, (2 * r + 1) ** 2 * 4 * px, PACKED_BYTE_OPS_PER_S)))
+    for sigma in BLUR_SIGMAS:
+        nt = len(gaussian_kernel(sigma))
+        for x, n, shape in ((img, 1, "3840x2160"), (batch, BATCH, f"[{BATCH},2160,3840,4]")):
+            cases.append((f"K-blur sigma={sigma} {shape}",
+                          lambda x=x, sigma=sigma: gaussian_blur_fused(x, sigma),
+                          _bound(2 * frame * n, 4 * nt * 4 * px * n, F32_OPS_PER_S)))
+    cases.append(("K-chain sigma=2.0 3840x2160", lambda: fused_chain_kernel(img, ov),
+                  _bound(3 * frame, _chain_ops(ov, len(gaussian_kernel(2.0)), px),
+                         F32_OPS_PER_S)))
+    print(f"timed cases, CUDA events, median of {TIMED_RUNS} [card: {card}]:")
+    result = []
+    for name, fn, (bound_ms, bound_by) in cases:
+        ms = _time_ms(fn)
+        queued = _queued_ms(fn, ms)
+        result.append({"case": name, "ms": ms, "queued_ms": queued, "bound_ms": bound_ms,
+                       "bound_by": bound_by})
+        print(f"  {name}: {ms:.4f} ms (queued {queued:.4f} ms), bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({bound_ms / ms * 100:.1f}% of it) [card: {card}]")
+    return result
+
+
+def time_route_limits(dev, gen, card):
+    """The measurements behind the route constants of ops/kernels.py, on one
+    3840x2160 frame, each route forced through its C entry (no wrapper, so
+    no launch counts), and each pair of routes held byte for byte to each
+    other: K-median's network and staged counting routes at every network
+    radius (MEDIAN_NETWORK_MAX_R); K-blur's short tile (BLUR_SHORT_Q sums a
+    thread, BLUR_SHORT_TILE_H rows) and its long one (BLUR_Q, BLUR_TILE_H)
+    at r = 1 .. BLUR_SHORT_MAX_R + 2 (BLUR_SHORT_MAX_R), and the long tile
+    beside the split route at the last tiled radius and the first split one
+    (BLUR_MIN_CHUNK)."""
+    import torch
+
+    from paintfe_tpu_torch.ops import kernels as K
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+
+    lib = load_library()
+    img = _rand(gen, UHD, dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def median(route, r):
+        out = torch.empty_like(img)
+        check(lib.pfe_median(img.data_ptr(), out.data_ptr(), 1, *UHD, r,
+                             K._MEDIAN_ROUTES[route], stream), f"pfe_median {route} r={r}")
+        return out
+
+    def tiled(taps, th, q):
+        out = torch.empty_like(img)
+        check(lib.pfe_blur_tiled(img.data_ptr(), out.data_ptr(), 1, *UHD, taps.ctypes.data,
+                                 len(taps), th, q, stream), f"pfe_blur_tiled th={th} q={q}")
+        return out
+
+    def split(taps):
+        out = torch.empty_like(img)
+        tmp = torch.empty(UHD + (4,), dtype=torch.float32, device=dev)
+        taps_dev = torch.from_numpy(taps).to(dev)
+        check(lib.pfe_blur_split(img.data_ptr(), tmp.data_ptr(), out.data_ptr(), 1, *UHD,
+                                 taps_dev.data_ptr(), len(taps), stream), "pfe_blur_split")
+        return out
+
+    def row(title, runs):
+        outs = [fn() for _, fn in runs]
+        if any(not torch.equal(o, outs[0]) for o in outs[1:]):
+            raise CheckFailed(f"{title}: the routes differ")
+        times = [(name, fn, _time_ms(fn)) for name, fn in runs]
+        print(f"  {title}: " + ", ".join(f"{name} {ms:.4f} ms (queued "
+                                         f"{_queued_ms(fn, ms):.4f} ms)"
+                                         for name, fn, ms in times) + f" [card: {card}]")
+
+    print(f"route limits at 3840x2160, CUDA events, median of {TIMED_RUNS} [card: {card}]:")
+    for r in range(1, K.MEDIAN_NETWORK_MAX_R + 1):
+        row(f"K-median r={r}", [("network", lambda r=r: median("network", r)),
+                                ("staged", lambda r=r: median("staged", r))])
+    short = (K.BLUR_SHORT_TILE_H, K.BLUR_SHORT_Q)
+    long = (K.BLUR_TILE_H, K.BLUR_Q)
+    last = next(r for r in range(1, 300) if K.blur_tile_rows(r + 1) == 0)
+    for r in list(range(1, K.BLUR_SHORT_MAX_R + 3)) + [last, last + 1]:
+        taps = gaussian_kernel((r - 0.5) / 3)  # radius r
+        runs = [(f"{q} sums x {th} rows", lambda th=th, q=q: tiled(taps, th, q))
+                for th, q in (short, long)] if r <= K.BLUR_SHORT_MAX_R + 2 else [
+                (f"{long[1]} sums x {long[0]} rows", lambda: tiled(taps, *long)),
+                ("split", lambda: split(taps))]
+        row(f"K-blur r={r} ({'split' if r > last else 'tiled'} route)", runs)
+
+
 def time_kernels(dev, gen, card):
-    """Each kernel, its plain version and, where one exists, one PyTorch
-    call computing the same function, at 3840x2160; with each kernel's
-    bound computed from these inputs."""
+    """The cases of time_cases, then each kernel, its plain version and,
+    where one exists, one PyTorch call computing the same function, at
+    3840x2160; with each kernel's bound computed from these inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -805,6 +997,8 @@ def time_kernels(dev, gen, card):
     from paintfe_tpu_torch.ops.warp_kernel import (gather_bilinear_plain,
                                                    gather_bilinear_u8)
 
+    time_cases(dev, gen, card)
+    time_route_limits(dev, gen, card)
     h, w = UHD
     px = h * w
     frame = px * 4  # bytes of one u8 RGBA frame
@@ -833,9 +1027,7 @@ def time_kernels(dev, gen, card):
 
     nt = taps.numel()
     blur_ops = 4 * nt * 4 * px  # two passes of nt multiplies and adds, 4 channels
-    # the chain's tail: 36 f32 operations a pixel, 55 more where the
-    # overlay is not clear (its soft-light Porter-Duff)
-    chain_ops = blur_ops + 36 * px + 55 * int((ov[..., 3] != 0).sum())
+    chain_ops = _chain_ops(ov, nt, px)
     # a blend that runs (top alpha not 0, and not NORMAL-opaque at full
     # opacity): 8 u8->f32 divides, the opacity product, 7 for the alpha, 8 a
     # channel for the Porter-Duff tail, plus its mixer's operations a channel
@@ -859,7 +1051,7 @@ def time_kernels(dev, gen, card):
         # a selection reads each of the 25 window values of each channel
         "median_kernel": (
             lambda: median_kernel(img, 2), lambda: median_plain(img, 2), None,
-            _bound(2 * frame, 25 * 4 * px, INT8_OPS_PER_S)),
+            _bound(2 * frame, 25 * 4 * px, PACKED_BYTE_OPS_PER_S)),
         # bilinear, clamp mode: 12 f32 operations a channel, 4 a pixel for
         # the fractions; source, two f32 fields and the output move once
         "gather_bilinear_u8": (

@@ -5,43 +5,42 @@
 // (paintfe_tpu/ops/pallas_kernels.py, _make_blur2d_kernel and _blur2d_fn),
 // and the XLA separable path it fell back to for more than 41 taps.
 //
-// What bounds it on the H100: device memory traffic of one u8 read and one
-// u8 write per pixel (2 x 33 MB per 3840x2160 frame) if the f32 pass
-// intermediate never leaves the SM, and the f32 multiply-adds, 2 x nt per
-// channel per pixel, once the radius grows.  The design keeps the H-pass
-// sums of one output tile (kTileW x th pixels plus a 2r-row halo) in
-// shared memory as float4, so the intermediate never reaches device
-// memory; pixels move as one u32 per RGBA pixel, so a warp reads 128
-// contiguous bytes.  Taps live in constant memory and are read in a
-// run-time loop: one kernel serves every radius.  The tile height shrinks
-// with the radius so that (th + 2r) * kTileW * 16 bytes fit the 227 KB a
-// block may use; a radius too large for an 8-row tile runs the split pair
-// (an H-pass kernel and a V-pass kernel over an f32 buffer in device
-// memory), with the same tap order.
+// What bounds it on the H100: the f32 multiplies and adds, 2 x nt a channel
+// a pixel in each pass (4.1 ns of the card's 33.5e12 separate f32
+// operations a second per 3840x2160 frame and tap), above one u8 read and
+// one u8 write per pixel (2 x 33 MB a frame).  The staged tile
+// (blur_tile.cuh) keeps everything else off the issue slots: the block's
+// source region (th + 2r rows by kTileW + 2r columns, edges clamped) is
+// staged once into shared memory with cp.async; the H pass converts each
+// staged value u8 -> f32 once per thread that reads it, and each thread
+// computes q = 8 adjacent H sums from a register window, so a loaded value
+// serves up to 8 sums; the V pass does the same down the columns of the
+// float4 sums in shared memory.  Taps live in constant memory and are read
+// in a run-time loop: one kernel serves every radius.  The wrapper
+// (ops/kernels.py blur_tile_rows, blur_sums) runs 128-row tiles up to
+// r = 140, and 64-row tiles of q = 4 sums a thread up to r = 4, where the
+// short sums leave the SM idle between the staging and the passes unless
+// twice the blocks (4, at 60-odd registers) share it.  Past r = 140 the
+// sums leave too little room for staged rows, and the split pair runs (an
+// H-pass kernel and a V-pass kernel over an f32 buffer in device memory),
+// with the same tap order.
 #include "blur_tile.cuh"
 
 namespace pfe {
 
-__global__ void __launch_bounds__(kThreads)
+// Q sums a thread; kMinBlocks blocks an SM bound the registers.
+template <int Q, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 blur_tiled_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
-                  int H, int W, int r, int nt, int th) {
-  extern __shared__ float4 hs[];
+                  int H, int W, int r, int nt, int th, int chunk) {
+  extern __shared__ float4 smem[];
+  float4* hs = smem;
+  uint32_t* stage = reinterpret_cast<uint32_t*>(smem + (th + 2 * r) * kTileW);
   const size_t plane = static_cast<size_t>(H) * W;
-  const uint32_t* img = src + blockIdx.z * plane;
-  uint32_t* out = dst + blockIdx.z * plane;
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * th;
-  h_pass_tile(img, hs, H, W, x0, y0, th, r, nt);
-  __syncthreads();
-  for (int i = threadIdx.x; i < th * kTileW; i += blockDim.x) {
-    const int row = i / kTileW;
-    const int col = i - row * kTileW;
-    const int gy = y0 + row;
-    const int gx = x0 + col;
-    if (gy >= H || gx >= W) continue;
-    const float4 v = v_pass_pixel(hs, row, col, nt);
-    out[static_cast<size_t>(gy) * W + gx] = pack(v.x, v.y, v.z, v.w);
-  }
+  blur_h_pass<Q>(src + blockIdx.z * plane, hs, stage, H, W, x0, y0, th, r, nt, chunk);
+  blur_v_pass<Q>(hs, dst + blockIdx.z * plane, H, W, x0, y0, th, r, nt);
 }
 
 // Split route, H pass: tmp[b, y, x] = sum_k taps[k] * src[b, y, clamp(x+k-r)].
@@ -83,35 +82,46 @@ blur_v_kernel(const float4* __restrict__ tmp, uint32_t* __restrict__ dst,
                 round_u8f(acc.w));
 }
 
+template <int Q, int kMinBlocks>
+cudaError_t launch_tiled(const uint32_t* src, uint32_t* dst, int B, int H, int W, int r,
+                         int nt, int th, int chunk, size_t smem, cudaStream_t s) {
+  auto* kernel = blur_tiled_kernel<Q, kMinBlocks>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  dim3 grid((W + kTileW - 1) / kTileW, (H + th - 1) / th, B);
+  kernel<<<grid, kThreads, smem, s>>>(src, dst, H, W, r, nt, th, chunk);
+  return cudaGetLastError();
+}
+
 }  // namespace pfe
 
 extern "C" {
 
 // Both entry points launch on `stream` and return cudaGetLastError() (0 on
-// success).  src/dst: u8 [B, H, W, 4] as u32 [B, H, W].
+// success).  src/dst: u8 [B, H, W, 4] as u32 [B, H, W].  The tiled one
+// runs th-row tiles of q (8 or 4) sums a thread (ops/kernels.py
+// blur_tile_rows and blur_sums choose both from the radius).
 
 int pfe_blur_tiled(const void* src, void* dst, int B, int H, int W,
-                   const float* taps_host, int nt, int th, void* stream) {
+                   const float* taps_host, int nt, int th, int q, void* stream) {
   using namespace pfe;
-  if (nt > kMaxConstTaps || th < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int r = nt / 2;
-  const size_t smem = tile_smem_bytes(th, r);
-  cudaError_t e = cudaSuccess;
-  if (nt > 0) {
-    e = cudaMemcpyToSymbolAsync(c_taps, taps_host, nt * sizeof(float), 0,
-                                cudaMemcpyHostToDevice, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const int chunk = blur_chunk_rows(th, r);
+  const size_t smem = blur_tile_bytes(th, r);
+  if (nt < 1 || nt > kMaxConstTaps || (q != 8 && q != 4) || th < q || th % q != 0 ||
+      chunk < 1 || smem > kBlurMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  e = cudaFuncSetAttribute(blur_tiled_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemcpyToSymbolAsync(c_taps, taps_host, nt * sizeof(float), 0,
+                                          cudaMemcpyHostToDevice, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + th - 1) / th, B);
-  blur_tiled_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst), H, W, r,
-      nt, th);
-  return static_cast<int>(cudaGetLastError());
+  const uint32_t* in = static_cast<const uint32_t*>(src);
+  uint32_t* out = static_cast<uint32_t*>(dst);
+  e = q == 8 ? launch_tiled<8, 2>(in, out, B, H, W, r, nt, th, chunk, smem, s)
+             : launch_tiled<4, 4>(in, out, B, H, W, r, nt, th, chunk, smem, s);
+  return static_cast<int>(e);
 }
 
 int pfe_blur_split(const void* src, void* tmp, void* dst, int B, int H, int W,

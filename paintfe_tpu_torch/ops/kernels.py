@@ -32,18 +32,77 @@ from paintfe_tpu_torch.utils.quant import round_u8
 
 # Tile geometry: TILE_W is csrc/blur_tile.cuh's kTileW.
 TILE_W = 32
+MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+
+# K-chain's tile (blur_tile.cuh h_pass_tile / v_pass_pixel)
 MAX_TILE_H = 64
 MIN_TILE_H = 8
-MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
 
 def tile_rows(r: int, extra_smem: int = 0) -> int:
-    """Output rows of one tile for blur radius `r`: at most MAX_TILE_H,
-    shrunk so the H-pass sums of the tile and its halo, (th + 2r) rows of
-    TILE_W float4, plus `extra_smem` bytes fit in shared memory.  0 means
-    no tile of MIN_TILE_H rows fits: the split kernels run instead."""
+    """K-chain's output rows of one tile for blur radius `r`: at most
+    MAX_TILE_H, shrunk so the H-pass sums of the tile and its halo,
+    (th + 2r) rows of TILE_W float4, plus `extra_smem` bytes fit in shared
+    memory.  0 means no tile of MIN_TILE_H rows fits: K-blur and the
+    chain's tail run instead."""
     th = min(MAX_TILE_H, (MAX_SMEM - extra_smem) // (TILE_W * 16) - 2 * r)
     return th if th >= MIN_TILE_H else 0
+
+
+# K-blur's staged tile (blur_tile.cuh blur_h_pass / blur_v_pass): TILE_W
+# output columns by blur_tile_rows(r) rows, in strips of blur_sums(r) (the
+# sums a thread computes); the H sums, (th + 2r) rows of TILE_W float4,
+# share MAX_SMEM with the source rows staged at once, (TILE_W + 2r) | 1 u32
+# each.  Up to BLUR_SHORT_MAX_R a thread computes BLUR_SHORT_Q sums in
+# BLUR_SHORT_TILE_H-row tiles, at four blocks an SM; above it BLUR_Q sums
+# in BLUR_TILE_H-row tiles, at two.  The tiled route runs while
+# BLUR_MIN_CHUNK source rows fit beside the sums (r <= 140), the split
+# route past that.  Set on NVIDIA H100 80GB HBM3 at 700 W from one-off
+# sweeps of the tile height and of the sums a thread at 3840x2160 (PERF.md,
+# PR 4, "K-blur: the geometry"); chip_smoke.time_route_limits times both
+# tiles at r = 1..6, and the tile beside the split route at r = 140, 141.
+BLUR_Q = 8
+BLUR_TILE_H = 128
+BLUR_SHORT_MAX_R = 4
+BLUR_SHORT_Q = 4
+BLUR_SHORT_TILE_H = 64
+BLUR_MIN_CHUNK = 18
+
+
+def blur_sums(r: int) -> int:
+    """Sums a thread of K-blur's staged tile computes at blur radius r."""
+    return BLUR_SHORT_Q if r <= BLUR_SHORT_MAX_R else BLUR_Q
+
+
+def blur_src_pitch(r: int) -> int:
+    return (TILE_W + 2 * r) | 1
+
+
+def blur_chunk_rows(th: int, r: int) -> int:
+    """blur_tile.cuh blur_chunk_rows: source rows staged at once, as many
+    as fit beside the sums, spread evenly over the chunks; 0 if none fits."""
+    sums = (th + 2 * r) * TILE_W * 16
+    room = max(MAX_SMEM - sums, 0) // (blur_src_pitch(r) * 4)
+    if room < 1:
+        return 0
+    rows = th + 2 * r
+    chunks = -(-rows // room)
+    return -(-rows // chunks)
+
+
+def blur_tile_bytes(th: int, r: int) -> int:
+    """blur_tile.cuh blur_tile_bytes: the tile's shared memory."""
+    return (th + 2 * r) * TILE_W * 16 + blur_chunk_rows(th, r) * blur_src_pitch(r) * 4
+
+
+def blur_tile_rows(r: int) -> int:
+    """K-blur's output rows of one tile at blur radius `r`:
+    BLUR_SHORT_TILE_H up to BLUR_SHORT_MAX_R, then BLUR_TILE_H while
+    BLUR_MIN_CHUNK source rows fit beside the sums, else 0: the split
+    kernels run."""
+    if r <= BLUR_SHORT_MAX_R:
+        return BLUR_SHORT_TILE_H
+    return BLUR_TILE_H if blur_chunk_rows(BLUR_TILE_H, r) >= BLUR_MIN_CHUNK else 0
 
 
 def gaussian_blur_plain(img: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -101,10 +160,10 @@ def gaussian_blur_fused(img: torch.Tensor, sigma: float) -> torch.Tensor:
     lib = load_library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
-        th = tile_rows(r)
+        th = blur_tile_rows(r)
         if th:
             rc = lib.pfe_blur_tiled(img.data_ptr(), out.data_ptr(), b, h, w,
-                                    taps.ctypes.data, nt, th, stream)
+                                    taps.ctypes.data, nt, th, blur_sums(r), stream)
         else:
             tmp = torch.empty((b, h, w, 4), dtype=torch.float32, device=img.device)
             taps_dev = torch.from_numpy(taps).to(img.device)
@@ -130,14 +189,26 @@ def gaussian_blur_fused_planar(planar: torch.Tensor, h: int, w: int,
 # K-median
 # ---------------------------------------------------------------------------
 
-# csrc/median.cu's output tile: the staged route needs
+# The largest radius of K-median's network route (csrc/median_network.cuh
+# holds one network per radius up to it; ops/median_network.py writes it).
+# At every r = 1..5 on a 3840x2160 frame the network beat the staged
+# counting route by 3x or more (chip_smoke.time_route_limits on NVIDIA H100
+# 80GB HBM3 at 700 W; PERF.md, PR 4); r = 5 is the largest radius measured.
+MEDIAN_NETWORK_MAX_R = 5
+# csrc/median.cu's counting routes: the staged one needs
 # (MEDIAN_TILE + 2r)^2 u32 of shared memory.
 MEDIAN_TILE = 32
+# pfe_median's route codes
+_MEDIAN_ROUTES = {"global": 0, "staged": 1, "network": 2}
 
 
 def median_route(r: int) -> str:
-    """Which route of K-median runs at radius r: "staged" (the tile and its
-    halo in shared memory) or "global" (the window read through L2)."""
+    """Which route of K-median runs at radius r: "network" (a selection
+    network), "staged" (the counting search on the tile and its halo in
+    shared memory) or "global" (the counting search reading the window
+    through L2)."""
+    if r <= MEDIAN_NETWORK_MAX_R:
+        return "network"
     return "staged" if (MEDIAN_TILE + 2 * r) ** 2 * 4 <= MAX_SMEM else "global"
 
 
@@ -208,7 +279,7 @@ def median_kernel(img: torch.Tensor, r: int) -> torch.Tensor:
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pfe_median(img.data_ptr(), out.data_ptr(), b, h, w, r,
-                            int(median_route(r) == "staged"), stream)
+                            _MEDIAN_ROUTES[median_route(r)], stream)
     check(rc, "median_kernel")
     median_kernel.launches += 1
     return out

@@ -38,7 +38,7 @@ _L = ctypes.c_longlong
 
 # C entry points: name -> argtypes; each returns cudaGetLastError() as int.
 _SIGNATURES = {
-    "pfe_blur_tiled": (_P, _P, _I, _I, _I, _P, _I, _I, _P),
+    "pfe_blur_tiled": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
     "pfe_blur_split": (_P, _P, _P, _I, _I, _I, _P, _I, _P),
     "pfe_chain_tiled": (_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P),
     "pfe_chain_tail": (_P, _P, _P, _I, _I, _P, _P, _P),

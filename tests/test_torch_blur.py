@@ -106,7 +106,9 @@ def test_wrapper_refuses_non_cpu_non_cuda_and_bad_tensors():
 
 @pytest.mark.parametrize("r,th", [(0, 64), (6, 64), (180, 64), (200, 54),
                                   (223, 8), (224, 0), (1000, 0)])
-def test_tile_rows_fit_shared_memory(r, th):
+def test_chain_tile_rows_fit_shared_memory(r, th):
+    """K-chain's tile: th rows of H sums plus the 2r halo, and its levels
+    table, in one block's shared memory."""
     def smem(rows):  # csrc/blur_tile.cuh tile_smem_bytes
         return (rows + 2 * r) * tkernels.TILE_W * 16
 
@@ -116,3 +118,92 @@ def test_tile_rows_fit_shared_memory(r, th):
         assert 2 * r + 1 <= 512  # the kernels' constant tap table
     else:
         assert smem(tkernels.MIN_TILE_H) > tkernels.MAX_SMEM
+
+
+def _split_limit():
+    return next(r for r in range(1000) if tkernels.blur_tile_rows(r) == 0) - 1
+
+
+@pytest.mark.parametrize("radii", ["0-24", "25-75", "76-limit", "limit+1", "223",
+                                   "224", "1000"])
+def test_tile_rows_fit_shared_memory(radii):
+    """K-blur's staged tile: every radius up to the split limit gets a tile
+    of BLUR_SHORT_TILE_H rows up to BLUR_SHORT_MAX_R, of BLUR_TILE_H above
+    (whole strips of the sums a thread computes), whose H sums and at least
+    BLUR_MIN_CHUNK staged source rows fit a block's 232448 bytes (a quarter
+    of the SM's for the short tile, which runs four blocks an SM); every
+    radius past it takes the split route."""
+    limit = _split_limit()
+    lo, _, hi = radii.partition("-")
+    lo = limit + 1 if lo == "limit+1" else int(lo)
+    hi = limit if hi == "limit" else int(hi or lo)
+    for r in range(lo, hi + 1):
+        th = tkernels.blur_tile_rows(r)
+        if r > limit:
+            assert th == 0, r
+            continue
+        chunk = tkernels.blur_chunk_rows(th, r)
+        short = r <= tkernels.BLUR_SHORT_MAX_R
+        assert th == (tkernels.BLUR_SHORT_TILE_H if short else tkernels.BLUR_TILE_H), r
+        assert tkernels.blur_sums(r) == (tkernels.BLUR_SHORT_Q if short else tkernels.BLUR_Q)
+        assert th % tkernels.blur_sums(r) == 0, r
+        if short:
+            assert 4 * (tkernels.blur_tile_bytes(th, r) + 1024) <= 233472, r
+        assert tkernels.BLUR_MIN_CHUNK <= chunk <= th + 2 * r, r
+        assert tkernels.blur_tile_bytes(th, r) <= tkernels.MAX_SMEM == 232448, r
+        assert 2 * r + 1 <= 512  # the kernels' constant tap table
+    assert 75 <= limit < 223
+
+
+def _conv_run(values, taps, q):
+    """blur_tile.cuh conv_run on the CPU, in f32: q sums from windows cur|nxt
+    of q loaded values each, taps in blocks of q (loads past the end clamp
+    to the last value, which no sum uses)."""
+    nt = len(taps)
+    acc = [np.float32(0)] * q
+
+    def load(j):
+        return values[min(j, len(values) - 1)]
+
+    def taps_block(cur, nxt, kb):
+        for kk in range(q):
+            if kb + kk < nt:
+                for i in range(q):
+                    v = cur[i + kk] if i + kk < q else nxt[i + kk - q]
+                    acc[i] = np.float32(acc[i] + np.float32(v * taps[kb + kk]))
+
+    a = [load(j) for j in range(q)]
+    for kb in range(0, nt, 2 * q):
+        b = [load(kb + q + j) for j in range(q)]
+        taps_block(a, b, kb)
+        if kb + q >= nt:
+            break
+        a = [load(kb + 2 * q + j) for j in range(q)]
+        taps_block(b, a, kb + q)
+    return acc
+
+
+@pytest.mark.parametrize("q", [4, 8])
+@pytest.mark.parametrize("sigma", [0.1, 0.5, 1.0, 2.0, 2.5, 5.0, 8.0, 25.0])
+def test_register_blocked_sums_keep_the_tap_order(sigma, q):
+    """Each of the q sums of a thread (BLUR_SHORT_Q or BLUR_Q) takes its
+    taps in order from 0, so it equals the plain ordered sum bit for bit."""
+    assert {tkernels.BLUR_SHORT_Q, tkernels.BLUR_Q} == {4, 8}
+    taps = tfilters.gaussian_kernel(sigma)
+    values = np.random.default_rng(8).integers(0, 256, q + len(taps) - 1).astype(np.float32)
+    want = []
+    for i in range(q):
+        s = np.float32(0)
+        for k, t in enumerate(taps):
+            s = np.float32(s + np.float32(values[i + k] * t))
+        want.append(s)
+    got = _conv_run(values, taps, q)
+    assert np.array(got, np.float32).tobytes() == np.array(want, np.float32).tobytes()
+
+
+def test_u8_to_f32_by_exponent_bits_is_exact():
+    """blur_tile.cuh u8x4_to_f32: the bits 0x4B0000bb are 2^23 + bb as an
+    f32, and subtracting 2^23 leaves bb exactly."""
+    b = np.arange(256, dtype=np.uint32)
+    f = (np.uint32(0x4B000000) | b).view(np.float32) - np.float32(8388608.0)
+    np.testing.assert_array_equal(f, b.astype(np.float32))

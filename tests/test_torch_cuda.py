@@ -87,14 +87,46 @@ def test_run_batch_on_the_card_equals_the_cpu(dev):
                           pipeline.run_batch(images, ops, "cpu"))
 
 
-@pytest.mark.parametrize("r", [1, 2, 4, 40, 110])
-@pytest.mark.parametrize("shape", [(1, 1), (37, 53), (3, 45, 70)])
+# every network radius and the first counting one, on images smaller than
+# the window, widths and heights that are not a multiple of the 128 x 16
+# tile, and a batch of 3
+@pytest.mark.parametrize("r", range(1, kernels.MEDIAN_NETWORK_MAX_R + 2))
+@pytest.mark.parametrize("shape", [(1, 1), (2, 7), (5, 3), (37, 53), (130, 257),
+                                   (3, 45, 70)])
 def test_median_kernel_equals_plain(dev, shape, r):
     img = _img(shape, 9, dev)
     before = kernels.median_kernel.launches
     out = kernels.median_kernel(img, r)
     assert kernels.median_kernel.launches == before + 1
     assert torch.equal(out, kernels.median_plain(img, r))
+
+
+# the counting routes: staged up to r = 104, global past it
+@pytest.mark.parametrize("r", [40, 104, 105, 110])
+@pytest.mark.parametrize("shape", [(1, 1), (37, 53), (3, 45, 70)])
+def test_median_counting_routes_equal_plain(dev, shape, r):
+    img = _img(shape, 10, dev)
+    assert torch.equal(kernels.median_kernel(img, r), kernels.median_plain(img, r))
+
+
+def _blur_limit_sigmas():
+    """Sigmas whose radius is the last of the short tile, the first of the
+    long one, the last with its source rows staged at once, the first
+    staged in chunks, the last tiled one and the first split one."""
+    radii = range(300)
+    th = kernels.BLUR_TILE_H
+    short = kernels.BLUR_SHORT_MAX_R
+    chunked = next(r for r in radii if kernels.blur_chunk_rows(th, r) < th + 2 * r)
+    split = next(r for r in radii if kernels.blur_tile_rows(r) == 0)
+    return [(r - 0.5) / 3 for r in (short, short + 1, chunked - 1, chunked, split - 1, split)]
+
+
+@pytest.mark.parametrize("sigma", _blur_limit_sigmas())
+@pytest.mark.parametrize("shape", [(37, 53), (3, 70, 45)])
+def test_blur_kernel_at_tile_limits(dev, shape, sigma):
+    img = _img(shape, 11, dev)
+    assert torch.equal(kernels.gaussian_blur_fused(img, sigma),
+                       kernels.gaussian_blur_plain(img, sigma))
 
 
 def _fields(h, w, dev):
