@@ -15,8 +15,12 @@ It builds the port's CUDA kernels from csrc/, then:
      smaller than the window), K-warp (csrc/warp_bilinear.cu)
      in both modes against gather_bilinear_plain, K-composite
      (csrc/composite.cu) against composite_stack_plain over all 25 blend
-     modes, opacities, conceal masks and initial accumulators, and K-pass
-     (csrc/blur_pass.cu) against gaussian_blur_pass_plain;
+     modes, opacities, conceal masks and initial accumulators, on pointers
+     that take its vector path, its scalar path and its scalar tail, with
+     its shared reciprocal counted against __fdiv_rn over every u8 input,
+     and K-pass (csrc/blur_pass.cu) against gaussian_blur_pass_plain, at
+     widths around each limit of its groups and segments and below its
+     radius, on both of its routes;
   2. drives three main paths and one entry call, each with every kernel
      launch count set to 0 just before it and read just after:
      - the headline path: the serial CLI (three 3840x2160 PNGs, --device
@@ -31,8 +35,9 @@ It builds the port's CUDA kernels from csrc/, then:
        a layer in a hidden folder; empty 64 px tiles in every layer) through
        the serial CLI (two 3840x2160 documents), --shard (those two and one
        1920x1080 document) and -f pfe, on a script that blurs the active
-       layer and replays two canvas ops on the others; a preview overlay
-       composited on the card must equal the CPU flatten;
+       layer and replays two canvas ops on the others; the active-tile mask
+       built on the card must equal the host definition, and a preview
+       overlay composited on the card the CPU flatten;
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -42,7 +47,9 @@ It builds the port's CUDA kernels from csrc/, then:
      --shard bucket that fell back to the per-image path would launch its
      kernels once per image; K-composite launches once per raster run);
   3. times K-median at several radii, K-blur at several sigmas (one frame
-     and a batch) and K-chain, then each kernel beside its plain version at
+     and a batch), K-chain, K-composite over stack depths, conceal masks
+     and mode mixes, and K-pass at several sigmas along both axes, then
+     each kernel beside its plain version at
      3840x2160 and beside one PyTorch call computing the same function
      where there is one, and each route beside its neighbour at the radii
      where ops/kernels.py hands over: CUDA events around one call, median
@@ -51,6 +58,12 @@ It builds the port's CUDA kernels from csrc/, then:
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}.  Any failed
 check exits non-zero before that line.  It imports nothing of JAX.
+
+    python3 chip_smoke.py --cases
+
+runs only the timed cases of step 3 and the flatten of one 3840x2160
+document, and prints them as one JSON line: run from two checkouts in
+turns, it compares two versions of the package on one card.
 """
 
 from __future__ import annotations
@@ -86,6 +99,15 @@ SHARD_UHD = 6
 MEDIAN_RADII = (1, 2, 3, 4, 8, 40, 110)
 BLUR_SIGMAS = (0.5, 2.0, 8.0, 25.0, 60.0)
 BATCH = 4
+# K-composite's timed stacks: layers, with and without a conceal mask on
+# every layer; K-pass's timed sigmas, along W = 3840 and along W = 2160
+COMPOSITE_DEPTHS = (1, 4, 8)
+PASS_SIGMAS = (0.5, 2.0, 8.0, 25.0)
+# the timed stack of time_kernels: NORMAL, MULTIPLY, SOFT_LIGHT, SCREEN
+TIMED_MODES, TIMED_OPACITIES = (0, 1, 16, 2), (1.0, 0.7, 1.0, 0.37)
+# f32 operations of each mode's mixer a channel (core/blend.py), for the
+# modes the timed stacks use
+MIXER_OPS = {0: 0, 1: 1, 2: 4, 7: 3, 16: 9, 19: 2, 21: 5}
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM, and
 # f32 without FMA contraction — every kernel builds with -fmad=false, so a
 # multiply and an add are two instructions: 132 SMs x 128 lanes x 1.98 GHz
@@ -369,6 +391,85 @@ def check_composite(dev, gen, errs):
             torch.cuda.empty_cache()
 
 
+def _offset_copy(t, offset):
+    """A contiguous copy of `t` whose first byte lies `offset` bytes past a
+    16-byte boundary."""
+    import torch
+
+    flat = torch.empty(t.numel() * t.element_size() + 32, dtype=torch.uint8, device=t.device)
+    start = (-flat.data_ptr()) % 16 + offset
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == offset % 16 and out.is_contiguous()
+    return out
+
+
+def check_composite_paths(dev, gen, errs):
+    """K-composite's entry picks the 16-byte path only where every pointer
+    of the launch allows it.  Layers allocated one by one take it (with a
+    scalar tail where H * W is not a multiple of 4); a layer, the initial
+    accumulator or the result's neighbours 4 or 8 bytes off a 16-byte
+    boundary, or a conceal plane 1 byte off, take the scalar path.  Then the
+    exact-divide route (opacities below 2^-20), and the shared reciprocal
+    counted against __fdiv_rn over every u8 input."""
+    import ctypes
+
+    import torch
+
+    from paintfe_tpu_torch.ops.kernels import (composite_stack_kernel,
+                                               composite_stack_plain)
+    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+
+    print("K-composite vector path, scalar path and scalar tail (byte-equal):")
+    modes = [0, 1, 16, 7, 13, 14, 21, 2]
+    opac = [1.0, 0.7, 1.0, 0.37, 0.5, 0.9, 1.0, 0.2]
+    for shape in [(37, 53), (64, 64), (257, 511), (1, 1), (1, 3), (2, 2)]:
+        stacked, conceal, init = _composite_inputs(gen, len(modes), shape, dev)
+        want = composite_stack_plain(stacked, modes, opac, conceal, init)
+        aligned = [l.clone() for l in stacked]
+        masks = [m.clone() for m in conceal]
+        cases = {
+            "layers allocated singly (vector path"
+            + (", scalar tail)" if shape[0] * shape[1] % 4 else ")"): (aligned, masks, init),
+            "one layer 4 bytes off (scalar path)":
+                (aligned[:3] + [_offset_copy(aligned[3], 4)] + aligned[4:], masks, init),
+            "one conceal plane 1 byte off (scalar path)":
+                (aligned, masks[:2] + [_offset_copy(masks[2], 1)] + masks[3:], init),
+            "the accumulator 8 bytes off (scalar path)":
+                (aligned, masks, _offset_copy(init, 8)),
+            "a stacked tensor unbound": (stacked, conceal, init),
+        }
+        for name, (ls, ms, ini) in cases.items():
+            _compare(f"{name} {shape[1]}x{shape[0]}",
+                     composite_stack_kernel(ls, modes, opac, ms, ini), want, errs)
+    # opacities below 2^-20 take three __fdiv_rn a pixel
+    stacked, conceal, init = _composite_inputs(gen, 4, (257, 511), dev)
+    for mode in (0, 7, 13, 16):
+        for tiny in (9.5e-7, 1e-12, 1e-30, 1e-45):
+            ms, op = (0, mode, mode, 2), (1.0, tiny, 1.0, tiny)
+            _compare(f"mode {mode} opacity {tiny} (exact divides) 511x257",
+                     composite_stack_kernel(stacked, ms, op, conceal, init),
+                     composite_stack_plain(stacked, ms, op, conceal, init), errs, quiet=True)
+    print("  ok  opacities below 2^-20 (exact divides), 4 modes x 4 opacities")
+    lib = load_library()
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    differ = compared = 0
+    for mode in (0, 1, 7, 16, 19, 21):
+        for opacity in (1.0, 0.37, 2.0 ** -20):
+            counts.zero_()
+            check(lib.pfe_composite_div_check(mode, ctypes.c_float(opacity),
+                                              counts.data_ptr(), stream),
+                  "pfe_composite_div_check")
+            d, c = counts.tolist()
+            differ, compared = differ + d, compared + c
+    print(f"  shared reciprocal against __fdiv_rn, every u8 (base, base alpha, top, top "
+          f"alpha), 6 modes x 3 opacities: {differ} of {compared} quotients differ")
+    if differ or not compared:
+        raise CheckFailed("K-composite's shared reciprocal differs from __fdiv_rn")
+    errs.append(0)
+
+
 def _plain_blur_pallas(img, sigma):
     """gaussian_blur_pallas through K-pass's plain version."""
     from paintfe_tpu_torch.ops.filters import gaussian_kernel
@@ -399,6 +500,33 @@ def check_blur_pass(dev, gen, errs):
             _compare(f"gaussian_blur_pallas sigma={sigma} {shape[1]}x{shape[0]}",
                      gaussian_blur_pallas(img, sigma), _plain_blur_pallas(img, sigma),
                      errs)
+    # widths below the radius, around a group of 4 and around a segment, on
+    # the staged route (the wrapper's) and the global one (forced)
+    import torch
+
+    from paintfe_tpu_torch.ops.kernels import PASS_MAX_SEG, pass_route, pass_segment
+    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    widths = [1, 2, 3, 4, 5, 7, 8, 63, PASS_MAX_SEG - 1, PASS_MAX_SEG, PASS_MAX_SEG + 1,
+              2 * PASS_MAX_SEG + 3]
+    for w in widths:
+        x = (torch.rand((3, 5, w), generator=gen) * 300 - 20).to(dev)
+        for sigma in (0.5, 2.0, 8.0, 25.0):
+            taps = gaussian_kernel(sigma)
+            want = gaussian_blur_pass_plain(x, taps)
+            _compare(f"W={w} sigma={sigma}", gaussian_blur_pass(x, taps), want, errs,
+                     quiet=True)
+            forced = torch.empty_like(x)
+            check(lib.pfe_blur_pass(x.data_ptr(), torch.from_numpy(taps).to(dev).data_ptr(),
+                                    forced.data_ptr(), 15, w, len(taps), 0, stream),
+                  "pfe_blur_pass, global route")
+            _compare(f"W={w} sigma={sigma} global route", forced, want, errs, quiet=True)
+    if any(pass_route(w, 75) != "staged" for w in widths):
+        raise CheckFailed("K-pass: a checked width left the staged route")
+    print(f"  ok  widths {widths} (segments of {[pass_segment(w) for w in widths]}) x "
+          "sigmas (0.5, 2, 8, 25), f32 [3,5,W], staged and global routes")
 
 
 def _plain_headline(img):
@@ -672,6 +800,7 @@ def drive_layered_path(dev, tmp):
 
     from paintfe_tpu_torch import cli
     from paintfe_tpu_torch.core.blend import BlendMode
+    from paintfe_tpu_torch.core.canvas import active_tile_mask_device, tile_window, upload
     from paintfe_tpu_torch.core.device import DeviceLayerCache, composite_device
     from paintfe_tpu_torch.io.pfe import load_pfe, save_pfe
 
@@ -728,8 +857,22 @@ def drive_layered_path(dev, tmp):
     if (root / "out_pfe" / "d0.pfe").read_bytes() != (root / "want.pfe").read_bytes():
         raise CheckFailed("layered pfe: d0.pfe differs from the plain route's bytes")
     processed = _plain_layered(root / "serial" / "d1.pfe", dev)
-    if processed.active_tile_mask(processed.visible_layers()) is None:
+    vis = processed.visible_layers()
+    if processed.active_tile_mask(vis) is None:
         raise CheckFailed("layered: no 64 px tile is empty, the tile mask never ran")
+    # the mask as the flatten builds it on the card, against the host definition
+    resident = [upload(l.pixels, dev) for _, l in vis if l.content != "adjustment"]
+    h, w = processed.height, processed.width
+    # the canvas, a window across the empty block's edge, a window of full tiles
+    for rect in (None, (h * 9 // 10, w * 7 // 8, h // 20, w // 10),
+                 (h // 20, w // 50, h // 4, w // 4)):
+        ty0, tx0, rh, rw = tile_window(h, w, rect)
+        on_card = active_tile_mask_device([t[ty0:ty0 + rh, tx0:tx0 + rw, 3] for t in resident],
+                                          h, w, rect).cpu().numpy()
+        host = processed.active_tile_mask(vis, rect)  # None: every tile holds data
+        if not (on_card.all() if host is None else np.array_equal(on_card, host)):
+            raise CheckFailed(f"layered: the tile mask built on the card differs from the "
+                              f"host definition (rect {rect})")
     doc = load_pfe(str(root / "serial" / "d1.pfe"))
     if not np.array_equal(composite_device(doc, DeviceLayerCache(dev)).cpu().numpy(),
                           doc.composite(device=dev)):
@@ -746,55 +889,80 @@ def drive_layered_path(dev, tmp):
         raise CheckFailed("layered: a preview composited on the card differs from "
                           "the CPU flatten")
     print("  ok  layered: PNG (serial 2, --shard 3) and .pfe outputs equal the plain "
-          "route; exact launch counts; composite_device equals Canvas.composite; a "
-          "preview composited on the card equals the CPU flatten")
+          "route; exact launch counts; the tile mask built on the card equals the host "
+          "definition; composite_device equals Canvas.composite; a preview composited on "
+          "the card equals the CPU flatten")
     profile_flatten(dev, doc)
     return launches
 
 
+def _wall_ms(fn, runs=5):
+    """The median wall time of fn() ending in a device synchronise, in ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def time_flatten(dev, seed=5):
+    """The wall time of Canvas.composite on one 3840x2160 six-layer
+    document (_layered_document), median of 5, in ms."""
+    import numpy as np
+
+    doc = _layered_document(np.random.default_rng(seed), *UHD)
+    return _wall_ms(lambda: doc.composite(device=dev))
+
+
 def profile_flatten(dev, doc):
     """Where the flatten of one document goes: the wall time of
-    Canvas.composite, its host parts timed alone (the active-tile mask, the
-    uploads of the visible raster layers) and, from torch.profiler, the
+    Canvas.composite, parts of it timed alone (the active-tile mask built on
+    the card from resident layers, beside the host definition it replaced;
+    the uploads of the visible raster layers) and, from torch.profiler, the
     device's busy time and K-composite's share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from paintfe_tpu_torch.core.canvas import upload
-
-    def wall_ms(fn, runs=5):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
+    from paintfe_tpu_torch.core.canvas import active_tile_mask_device, upload
 
     vis = doc.visible_layers()
     rasters = [l for _, l in vis if l.content != "adjustment"]
-    flatten_ms = wall_ms(lambda: doc.composite(device=dev))
-    mask_ms = wall_ms(lambda: doc.active_tile_mask(vis))
-    upload_ms = wall_ms(lambda: [upload(l.pixels, dev) for l in rasters])
+    resident = [upload(l.pixels, dev) for l in rasters]
+    flatten_ms = _wall_ms(lambda: doc.composite(device=dev))
+    mask_ms = _wall_ms(lambda: active_tile_mask_device([t[..., 3] for t in resident],
+                                                       doc.height, doc.width))
+    host_mask_ms = _wall_ms(lambda: doc.active_tile_mask(vis))
+    upload_ms = _wall_ms(lambda: [upload(l.pixels, dev) for l in rasters])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         doc.composite(device=dev)
         torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
     busy = kernel = 0.0
     for e in prof.key_averages():
+        # kernels and copies only: a host op's row repeats its kernels' time
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         busy += us
         if "composite_kernel" in e.key:
             kernel += us
-    device = (f"device busy {busy / 1e3:.3f} ms ({busy / 1e3 / flatten_ms * 100:.1f}% "
-              f"of it), K-composite {kernel / 1e3:.3f} ms" if busy
+    device = (f"in one traced flatten of {traced_ms:.3f} ms wall, device busy "
+              f"{busy / 1e3:.3f} ms ({busy / 1e3 / traced_ms * 100:.1f}% of it, copies "
+              f"included), K-composite {kernel / 1e3:.3f} ms" if busy
               else "device busy not measured (the profiler saw no device time)")
     print(f"  flatten of one {doc.width}x{doc.height} document, median of 5: "
-          f"{flatten_ms:.3f} ms wall; alone: active-tile mask {mask_ms:.3f} ms, "
-          f"{len(rasters)} layer uploads {upload_ms:.3f} ms; {device}")
+          f"{flatten_ms:.3f} ms wall; alone: active-tile mask on the card {mask_ms:.3f} ms "
+          f"(the host definition: {host_mask_ms:.3f} ms), {len(rasters)} layer uploads "
+          f"{upload_ms:.3f} ms; {device}")
 
 
 def _time_ms(fn, runs=TIMED_RUNS):
@@ -868,15 +1036,36 @@ def _chain_ops(ov, nt, px):
     return 4 * nt * 4 * px + 36 * px + 55 * int((ov[..., 3] != 0).sum())
 
 
+def _composite_ops(layers, modes, opacities, conceal=None):
+    """f32 operations of K-composite on these layers: a blend that runs (top
+    alpha, after the conceal mask, not 0, and not NORMAL-opaque at full
+    opacity) takes 8 u8 -> f32 conversions, the opacity product, 7 for the
+    alpha, 8 a channel for the Porter-Duff tail, and its mixer's operations
+    (MIXER_OPS) a channel."""
+    ops = 0
+    for k, (layer, mode, o) in enumerate(zip(layers, modes, opacities)):
+        alpha = layer[..., 3]
+        if conceal is not None:
+            alpha = (alpha.int() * (255 - conceal[k].int()) // 255)
+        runs = alpha != 0
+        if mode == 0 and o >= 1.0:
+            runs &= alpha != 255
+        ops += int(runs.sum()) * (16 + 24 + 3 * MIXER_OPS[mode])
+    return ops
+
+
 def time_cases(dev, gen, card):
     """K-median at MEDIAN_RADII, K-blur at BLUR_SIGMAS on one 3840x2160
-    frame and on a batch of BATCH, and K-chain at sigma 2, each the median
-    of TIMED_RUNS CUDA-event timings of one call beside its bound, and its
-    queued device time (_queued_ms).  Prints one line a case and returns
-    them as dicts."""
+    frame and on a batch of BATCH, K-chain at sigma 2, K-composite at
+    COMPOSITE_DEPTHS with and without conceal masks, on its fast path and
+    on divide-heavy modes, and K-pass at PASS_SIGMAS along both axes, each
+    the median of TIMED_RUNS CUDA-event timings of one call beside its
+    bound, and its queued device time (_queued_ms).  Prints one line a case
+    and returns them as dicts."""
     from paintfe_tpu_torch.ops.filters import gaussian_kernel
     from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
-    from paintfe_tpu_torch.ops.kernels import (gaussian_blur_fused, median_kernel,
+    from paintfe_tpu_torch.ops.kernels import (composite_stack_kernel, gaussian_blur_fused,
+                                               gaussian_blur_pass, median_kernel,
                                                median_route)
 
     h, w = UHD
@@ -900,6 +1089,54 @@ def time_cases(dev, gen, card):
     cases.append(("K-chain sigma=2.0 3840x2160", lambda: fused_chain_kernel(img, ov),
                   _bound(3 * frame, _chain_ops(ov, len(gaussian_kernel(2.0)), px),
                          F32_OPS_PER_S)))
+    # K-composite: stacks of N layers over an initial accumulator, cycling
+    # the timed modes, with and without a conceal mask on every layer; then
+    # four NORMAL layers of alpha 255 at full opacity (the fast path), and
+    # four layers of divide-heavy modes
+    deep = max(COMPOSITE_DEPTHS)
+    layers = [_rand(gen, UHD, dev) for _ in range(deep)]
+    masks = [_rand(gen, UHD, dev)[..., 0].contiguous() for _ in range(deep)]
+    init = _rand(gen, UHD, dev)
+    for n in COMPOSITE_DEPTHS:
+        modes = [TIMED_MODES[k % 4] for k in range(n)]
+        opac = [TIMED_OPACITIES[k % 4] for k in range(n)]
+        for name, conceal in (("", None), (" +conceal", masks[:n])):
+            nbytes = (n + 2) * frame + (n * px if conceal else 0)
+            cases.append((f"K-composite N={n}{name} +init 3840x2160",
+                          lambda n=n, modes=modes, opac=opac, conceal=conceal:
+                          composite_stack_kernel(layers[:n], modes, opac, conceal, init),
+                          _bound(nbytes, _composite_ops(layers[:n], modes, opac, conceal),
+                                 F32_OPS_PER_S)))
+    # the timed stack again with one layer 4 bytes off a 16-byte boundary:
+    # the entry's scalar path
+    shifted = layers[:3] + [_offset_copy(layers[3], 4)]
+    cases.append(("K-composite N=4 +init, one layer 4 bytes off (scalar path) 3840x2160",
+                  lambda: composite_stack_kernel(shifted, TIMED_MODES, TIMED_OPACITIES, None,
+                                                 init),
+                  _bound(6 * frame, _composite_ops(shifted, TIMED_MODES, TIMED_OPACITIES),
+                         F32_OPS_PER_S)))
+    opaque = [t.clone() for t in layers[:4]]
+    for t in opaque:
+        t[..., 3] = 255
+    cases.append(("K-composite N=4 NORMAL, alpha 255, opacity 1 (fast path) +init 3840x2160",
+                  lambda: composite_stack_kernel(opaque, (0,) * 4, (1.0,) * 4, None, init),
+                  _bound(6 * frame, _composite_ops(opaque, (0,) * 4, (1.0,) * 4),
+                         F32_OPS_PER_S)))
+    heavy = (7, 21, 19, 16)  # COLOR_DODGE, VIVID_LIGHT, DIVIDE, SOFT_LIGHT
+    cases.append(("K-composite N=4 divide-heavy modes +init 3840x2160",
+                  lambda: composite_stack_kernel(layers[:4], heavy, TIMED_OPACITIES, None, init),
+                  _bound(6 * frame, _composite_ops(layers[:4], heavy, TIMED_OPACITIES),
+                         F32_OPS_PER_S)))
+    # K-pass: one pass along W = 3840 and along W = 2160 (the second pass of
+    # gaussian_blur_pallas, on the transposed planes)
+    planar = img.permute(2, 0, 1).float().contiguous()
+    turned = planar.transpose(1, 2).contiguous()
+    for sigma in PASS_SIGMAS:
+        taps = gaussian_kernel(sigma)
+        for x in (planar, turned):
+            cases.append((f"K-pass sigma={sigma} one pass f32 {list(x.shape)}",
+                          lambda x=x, taps=taps: gaussian_blur_pass(x, taps),
+                          _bound(2 * 4 * 4 * px, 2 * len(taps) * 4 * px, F32_OPS_PER_S)))
     print(f"timed cases, CUDA events, median of {TIMED_RUNS} [card: {card}]:")
     result = []
     for name, fn, (bound_ms, bound_by) in cases:
@@ -921,7 +1158,8 @@ def time_route_limits(dev, gen, card):
     thread, BLUR_SHORT_TILE_H rows) and its long one (BLUR_Q, BLUR_TILE_H)
     at r = 1 .. BLUR_SHORT_MAX_R + 2 (BLUR_SHORT_MAX_R), and the long tile
     beside the split route at the last tiled radius and the first split one
-    (BLUR_MIN_CHUNK)."""
+    (BLUR_MIN_CHUNK); K-pass's staged route at segments of PASS_MAX_SEG and
+    of 1024 outputs beside its global route (PASS_MAX_SEG)."""
     import torch
 
     from paintfe_tpu_torch.ops import kernels as K
@@ -961,6 +1199,14 @@ def time_route_limits(dev, gen, card):
                                          f"{_queued_ms(fn, ms):.4f} ms)"
                                          for name, fn, ms in times) + f" [card: {card}]")
 
+    planar = img.permute(2, 0, 1).float().contiguous()
+
+    def one_pass(taps_dev, nt, seg):
+        out = torch.empty_like(planar)
+        check(lib.pfe_blur_pass(planar.data_ptr(), taps_dev.data_ptr(), out.data_ptr(),
+                                4 * UHD[0], UHD[1], nt, seg, stream), f"pfe_blur_pass seg={seg}")
+        return out
+
     print(f"route limits at 3840x2160, CUDA events, median of {TIMED_RUNS} [card: {card}]:")
     for r in range(1, K.MEDIAN_NETWORK_MAX_R + 1):
         row(f"K-median r={r}", [("network", lambda r=r: median("network", r)),
@@ -975,6 +1221,16 @@ def time_route_limits(dev, gen, card):
                 (f"{long[1]} sums x {long[0]} rows", lambda: tiled(taps, *long)),
                 ("split", lambda: split(taps))]
         row(f"K-blur r={r} ({'split' if r > last else 'tiled'} route)", runs)
+    # K-pass: the wrapper's segments (at most PASS_MAX_SEG outputs) beside a
+    # row in four segments of 960 (the kernel takes up to 1024), and the
+    # global route
+    for sigma in PASS_SIGMAS:
+        taps = gaussian_kernel(sigma)
+        taps_dev = torch.from_numpy(taps).to(dev)
+        row(f"K-pass sigma={sigma} one pass f32 [4,{UHD[0]},{UHD[1]}]",
+            [(f"segments of {seg}" if seg else "global route",
+              lambda seg=seg: one_pass(taps_dev, len(taps), seg))
+             for seg in (K.pass_segment(UHD[1]), 960, 0)])
 
 
 def time_kernels(dev, gen, card):
@@ -1023,22 +1279,12 @@ def time_kernels(dev, gen, card):
     # K-composite: four layers over an initial accumulator
     stack = [_rand(gen, UHD, dev) for _ in range(4)]
     init = _rand(gen, UHD, dev)
-    modes, opac = (0, 1, 16, 2), (1.0, 0.7, 1.0, 0.37)
+    modes, opac = TIMED_MODES, TIMED_OPACITIES
 
     nt = taps.numel()
     blur_ops = 4 * nt * 4 * px  # two passes of nt multiplies and adds, 4 channels
     chain_ops = _chain_ops(ov, nt, px)
-    # a blend that runs (top alpha not 0, and not NORMAL-opaque at full
-    # opacity): 8 u8->f32 divides, the opacity product, 7 for the alpha, 8 a
-    # channel for the Porter-Duff tail, plus its mixer's operations a channel
-    mixer_ops = {0: 0, 1: 1, 2: 4, 16: 9}
-    composite_ops = 0
-    for layer, mode, o in zip(stack, modes, opac):
-        alpha = layer[..., 3]
-        runs = alpha != 0
-        if mode == 0 and o >= 1.0:
-            runs &= alpha != 255
-        composite_ops += int(runs.sum()) * (16 + 24 + 3 * mixer_ops[mode])
+    composite_ops = _composite_ops(stack, modes, opac)
     pairs = {
         "fused_chain_kernel": (
             lambda: fused_chain_kernel(img, ov), lambda: fused_chain(img, ov),
@@ -1109,12 +1355,29 @@ KERNEL_SOURCES = {
 }
 
 
+def print_cases() -> int:
+    """`chip_smoke.py --cases`: time_cases and time_flatten on the package
+    beside this file, as one JSON line.  To compare two versions of the
+    package on one card, run it from each one's directory in turns."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    card = _card()
+    cases = time_cases(dev, torch.Generator().manual_seed(0), card)
+    flatten_ms = time_flatten(dev)
+    print(f"flatten of one 3840x2160 document: {flatten_ms:.3f} ms wall [card: {card}]")
+    print(json.dumps({"card": card, "cases": cases, "flatten_ms": flatten_ms}))
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("error: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--cases"]:
+        return print_cases()
     from paintfe_tpu_torch.parallel.batch import shutdown_encode_pool
     from paintfe_tpu_torch.utils.cuda_build import BUILD_INFO, load_library
 
@@ -1140,6 +1403,7 @@ def main() -> int:
         check_warp(dev, gen, errs["gather_bilinear_u8"])
         torch.cuda.empty_cache()
         check_composite(dev, gen, errs["composite_stack_kernel"])
+        check_composite_paths(dev, gen, errs["composite_stack_kernel"])
         check_blur_pass(dev, gen, errs["gaussian_blur_pass"])
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:

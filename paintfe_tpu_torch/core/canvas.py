@@ -5,9 +5,11 @@ Behavioral contract: `CanvasState` / `Layer` (src/canvas/canvas_state.rs:9-139,
 src/canvas/layers.rs:366-421) minus the GUI caches.  Layer pixels stay numpy
 u8 arrays on the host.  `Canvas.composite` flattens on a torch device: each
 raster run is uploaded and folded by K-composite (core/composite.py), the
-accumulator stays on the device across in-stream adjustment layers, and the
-result is read back once.  `canvas_from_document` carries a document object
-of the JAX package across.
+accumulator stays on the device across in-stream adjustment layers, the
+active-tile mask is built there from the uploaded layers
+(`active_tile_mask_device`), and the result is read back once.
+`canvas_from_document` carries a document object of the JAX package
+across.
 """
 
 from __future__ import annotations
@@ -175,17 +177,8 @@ class Canvas:
         from paintfe_tpu_torch.utils.device import resolve_device
 
         dev = resolve_device(device)
-
-        def pixels(idx, layer):
-            px = upload(layer.pixels, dev)
-            if idx == self.active_layer_index and self.preview is not None:
-                return self._apply_preview(px, upload(self.preview, dev))
-            return px
-
-        def conceal(layer):
-            return upload(layer.mask, dev)
-
-        return flatten(self, pixels, conceal, dev).cpu().numpy()
+        return flatten(self, lambda layer: upload(layer.pixels, dev),
+                       lambda layer: upload(layer.mask, dev), dev).cpu().numpy()
 
     def active_tile_mask(self, vis, rect=None) -> Optional[np.ndarray]:
         """Per-pixel bool mask of 64x64 tiles where some visible raster
@@ -193,15 +186,11 @@ class Canvas:
         alpha nonzero in the tile".  Returns None when every tile is
         active.  `rect` = (y0, x0, bh, bw) restricts it to the tiles
         intersecting that window and returns the mask slice for exactly
-        that window (tiles stay aligned to the global 64 px grid)."""
-        if rect is None:
-            y0, x0, bh, bw = 0, 0, self.height, self.width
-        else:
-            y0, x0, bh, bw = rect
-        ty0 = (y0 // TILE) * TILE
-        tx0 = (x0 // TILE) * TILE
-        rh = min(-(-(y0 + bh) // TILE) * TILE, self.height) - ty0
-        rw = min(-(-(x0 + bw) // TILE) * TILE, self.width) - tx0
+        that window (tiles stay aligned to the global 64 px grid).  This
+        is the definition, on the host; the flatten builds the same mask
+        on its device (active_tile_mask_device)."""
+        y0, x0, bh, bw = (0, 0, self.height, self.width) if rect is None else rect
+        ty0, tx0, rh, rw = tile_window(self.height, self.width, rect)
         any_alpha = np.zeros((rh, rw), bool)
         for _, layer in vis:
             if layer.content == "adjustment":
@@ -253,23 +242,76 @@ class Canvas:
         return self.selection is not None
 
 
+def tile_window(height: int, width: int, rect=None) -> Tuple[int, int, int, int]:
+    """(ty0, tx0, rh, rw): `rect` = (y0, x0, bh, bw) grown to the global
+    64 px tile grid and cut to the canvas; the whole canvas for no rect."""
+    y0, x0, bh, bw = (0, 0, height, width) if rect is None else rect
+    ty0 = (y0 // TILE) * TILE
+    tx0 = (x0 // TILE) * TILE
+    rh = min(-(-(y0 + bh) // TILE) * TILE, height) - ty0
+    rw = min(-(-(x0 + bw) // TILE) * TILE, width) - tx0
+    return ty0, tx0, rh, rw
+
+
+def active_tile_mask_device(alphas, height: int, width: int, rect=None) -> torch.Tensor:
+    """Canvas.active_tile_mask on the device that holds the pixels.
+
+    `alphas` are the u8 alpha planes (views will do) of the visible raster
+    layers, raw, and of the preview overlay, each cut to
+    tile_window(height, width, rect).  Returns the bool [bh, bw] mask of
+    `rect` (the canvas for no rect): True where the pixel's 64 px tile has
+    a nonzero alpha in some plane.  Where the host version returns None
+    this one is all True; it never reads a value back to the host."""
+    y0, x0, bh, bw = (0, 0, height, width) if rect is None else rect
+    ty0, tx0, rh, rw = tile_window(height, width, rect)
+    th, tw = -(-rh // TILE), -(-rw // TILE)
+    tiles = None
+    for alpha in alphas:
+        padded = torch.zeros((th * TILE, tw * TILE), dtype=torch.bool, device=alpha.device)
+        torch.ne(alpha, 0, out=padded[:rh, :rw])
+        live = padded.view(th, TILE, tw, TILE).any(dim=3).any(dim=1)
+        tiles = live if tiles is None else tiles | live
+    if tiles is None:
+        raise ValueError("active_tile_mask_device: no alpha planes")
+    keep = tiles.repeat_interleave(TILE, dim=0).repeat_interleave(TILE, dim=1)
+    return keep[y0 - ty0:y0 - ty0 + bh, x0 - tx0:x0 - tx0 + bw]
+
+
 def flatten(canvas: Canvas, pixels: Callable, conceal: Callable, device,
             rect=None) -> torch.Tensor:
     """The flatten shared by Canvas.composite and core/device.py: fold the
     visible stack on `device` and return the u8 [bh, bw, 4] result there.
 
-    `pixels(idx, layer)` gives a raster layer's u8 pixels on the device
-    (with the preview pre-blended into the active layer), `conceal(layer)`
-    its live mask; both already cut to `rect` = (y0, x0, bh, bw) when one
-    is given.  Raster runs fold with K-composite (core/composite.py);
-    adjustment layers apply in-stream to the accumulator; when any did,
-    tiles with no data in any visible layer are cleared (the reference only
-    composites chunks present in some layer's store, canvas_state.rs:528-551;
-    without this, e.g. Invert would turn empty tiles (255,255,255,0))."""
+    `pixels(layer)` gives a raster layer's raw u8 pixels on the device at
+    canvas size, `conceal(layer)` its live mask; the flatten cuts both to
+    `rect` = (y0, x0, bh, bw) when one is given, uploads the preview's
+    window and pre-blends it into the active layer.  Raster runs fold with
+    K-composite (core/composite.py); adjustment layers apply in-stream to
+    the accumulator; when any did, tiles with no data in any visible layer
+    are cleared (the reference only composites chunks present in some
+    layer's store, canvas_state.rs:528-551; without this, e.g. Invert would
+    turn empty tiles (255,255,255,0)).  That mask comes from the raw layers'
+    and the preview's alpha as they lie on the device."""
     from paintfe_tpu_torch.core.composite import composite_stack_static
 
-    bh, bw = (canvas.height, canvas.width) if rect is None else rect[2:]
+    y0, x0, bh, bw = (0, 0, canvas.height, canvas.width) if rect is None else rect
     vis = canvas.visible_layers()
+    has_adjustment = any(l.content == "adjustment" and l.adjustment is not None
+                         for _, l in vis)
+    # the mask needs whole tiles: with an adjustment layer the preview is
+    # uploaded at the rect grown to the tile grid, else at the rect
+    ty0, tx0, rh, rw = (tile_window(canvas.height, canvas.width, rect) if has_adjustment
+                        else (y0, x0, bh, bw))
+
+    def window(t):
+        return t if rect is None else t[y0:y0 + bh, x0:x0 + bw].contiguous()
+
+    alphas = []  # of the raw raster layers and the preview, at the tile window
+    preview = None
+    if canvas.preview is not None:
+        grown = upload(canvas.preview[ty0:ty0 + rh, tx0:tx0 + rw], device)
+        alphas.append(grown[..., 3])
+        preview = grown[y0 - ty0:y0 - ty0 + bh, x0 - tx0:x0 - tx0 + bw].contiguous()
     acc = None  # transparent until the first run or adjustment
     run = []  # (pixels, mode, opacity, conceal or None)
 
@@ -282,26 +324,30 @@ def flatten(canvas: Canvas, pixels: Callable, conceal: Callable, device,
         return composite_stack_static(list(px), modes, np.asarray(opac, np.float32),
                                       list(masks) if live else None, init=acc)
 
-    has_adjustment = False
     for idx, layer in vis:
         if layer.content == "adjustment" and layer.adjustment is not None:
-            has_adjustment = True
             acc = flush(acc)
             if acc is None:
                 acc = torch.zeros((bh, bw, 4), dtype=torch.uint8, device=device)
             acc = layer.adjustment.apply_with_opacity(acc, layer.opacity)
-        else:
-            mask = (conceal(layer) if layer.mask is not None and layer.mask_enabled
-                    else None)
-            run.append((pixels(idx, layer), int(layer.blend_mode), layer.opacity, mask))
+            continue
+        raw = pixels(layer)
+        if layer.content != "adjustment":
+            alphas.append(raw[ty0:ty0 + rh, tx0:tx0 + rw, 3])
+        px = window(raw)
+        if idx == canvas.active_layer_index and preview is not None:
+            px = canvas._apply_preview(px, preview)
+        mask = (window(conceal(layer)) if layer.mask is not None and layer.mask_enabled
+                else None)
+        run.append((px, int(layer.blend_mode), layer.opacity, mask))
     out = flush(acc)
     if out is None:
         return torch.zeros((bh, bw, 4), dtype=torch.uint8, device=device)
-    if has_adjustment:
-        tile_mask = canvas.active_tile_mask(vis, rect)
-        if tile_mask is not None:
-            keep = torch.from_numpy(np.ascontiguousarray(tile_mask)).to(device)
-            out = torch.where(keep[..., None], out, torch.zeros_like(out))
+    if has_adjustment and alphas:
+        keep = active_tile_mask_device(alphas, canvas.height, canvas.width, rect)
+        out = torch.where(keep[..., None], out, 0)
+    elif has_adjustment:
+        out = torch.zeros_like(out)  # no raster layer: no tile holds data
     return out
 
 

@@ -18,7 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from paintfe_tpu_torch.core.canvas import upload, flatten
+from paintfe_tpu_torch.core.canvas import flatten, upload
 
 
 class DeviceLayerCache:
@@ -64,19 +64,8 @@ def composite_device(canvas, cache: DeviceLayerCache) -> torch.Tensor:
     """Composite with device-resident layers; returns a u8 [H, W, 4] tensor
     on the cache's device (no readback — the composite_to_gpu analogue,
     renderer.rs:805).  Bit-equal to Canvas.composite."""
-    dev = cache.device
-
-    def pixels(idx, layer):
-        px = cache.get(layer)
-        if idx == canvas.active_layer_index and canvas.preview is not None:
-            # the preview changes every frame: upload it, blend on the device
-            return canvas._apply_preview(px, upload(canvas.preview, dev))
-        return px
-
-    def conceal(layer):
-        return cache.get(layer, slot="mask")
-
-    return flatten(canvas, pixels, conceal, dev)
+    return flatten(canvas, cache.get, lambda layer: cache.get(layer, slot="mask"),
+                   cache.device)
 
 
 def composite_dirty_rect(canvas, cache: DeviceLayerCache, prev: torch.Tensor, rect):
@@ -86,10 +75,13 @@ def composite_dirty_rect(canvas, cache: DeviceLayerCache, prev: torch.Tensor, re
 
     The reference's interactive loop recomposites and reads back only the
     dirty rect (canvas_state.rs:1511-1531 mark_dirty, renderer.rs:588).
-    Here the window of each cached layer is a contiguous copy handed to
-    K-composite, and the splice is a slice assignment.  Every pointwise
-    stage of the full composite applies identically on the window, so the
-    splice is bit-equal to a full recomposite.
+    Here the flatten cuts the window of each cached layer (a contiguous copy
+    handed to K-composite), uploads only the preview's window (grown to the
+    64 px tile grid when an adjustment layer needs the active-tile mask) and
+    reads that mask off the cached layers; the splice is a slice
+    assignment.  Every pointwise stage of the full composite applies
+    identically on the window, so the splice is bit-equal to a full
+    recomposite.
 
     rect = (x0, y0, x1, y1) inclusive; `prev` is a u8 [H, W, 4] tensor on
     the cache's device.
@@ -102,22 +94,7 @@ def composite_dirty_rect(canvas, cache: DeviceLayerCache, prev: torch.Tensor, re
     if x1 < x0 or y1 < y0:
         return prev
     bh, bw = y1 - y0 + 1, x1 - x0 + 1
-    dev = cache.device
-
-    def window(t):
-        return t[y0:y0 + bh, x0:x0 + bw].contiguous()
-
-    def pixels(idx, layer):
-        px = window(cache.get(layer))
-        if idx == canvas.active_layer_index and canvas.preview is not None:
-            # upload only the preview's window, blend it on the device
-            return canvas._apply_preview(
-                px, upload(canvas.preview[y0:y0 + bh, x0:x0 + bw], dev))
-        return px
-
-    def conceal(layer):
-        return window(cache.get(layer, slot="mask"))
-
-    prev[y0:y0 + bh, x0:x0 + bw] = flatten(canvas, pixels, conceal, dev,
-                                           rect=(y0, x0, bh, bw))
+    prev[y0:y0 + bh, x0:x0 + bw] = flatten(
+        canvas, cache.get, lambda layer: cache.get(layer, slot="mask"), cache.device,
+        rect=(y0, x0, bh, bw))
     return prev

@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from paintfe_tpu_torch.core.blend import blend_u8, clip_opacity
+from paintfe_tpu_torch.core.blend import blend_u8
 from paintfe_tpu_torch.ops.filters import _oddeven_merge_network, gaussian_kernel
 from paintfe_tpu_torch.utils.quant import round_u8
 
@@ -296,6 +296,14 @@ median_kernel.launches = 0
 COMPOSITE_CHUNK = 32
 
 
+def composite_unit_table() -> np.ndarray:
+    """The u8 -> f32 table each block of csrc/composite.cu fills: entry i is
+    i / 255 as one correctly rounded f32 divide, the conversion of
+    core/blend.blend_u8 (a multiply by 1 / 255 rounds 126 of the 256 values
+    differently)."""
+    return np.arange(256, dtype=np.float32) / np.float32(255.0)
+
+
 def as_u8_tensor(x):
     """A tensor as it is; a u8 numpy array as a tensor on the CPU; None as
     None."""
@@ -357,7 +365,9 @@ def composite_stack_kernel(layers, modes, opacities, conceal=None, init=None):
     if first.device.type == "cpu":
         return composite_stack_plain(layers, modes, opacities, conceal, init)
     modes = host_values(modes, np.int64)
-    opacities = [clip_opacity(o) for o in host_values(opacities, np.float32)]
+    # clip_opacity for the whole stack in one numpy call
+    opacities = np.clip(np.asarray(host_values(opacities, np.float32), np.float32),
+                        np.float32(0.0), np.float32(1.0)).tolist()
     masks = [None] * len(layers) if conceal is None else layer_list(conceal)
     if not len(modes) == len(opacities) == len(masks) == len(layers):
         raise ValueError("composite_stack_kernel: layers, modes, opacities "
@@ -429,12 +439,49 @@ def gaussian_blur_pass_plain(x: torch.Tensor, taps) -> torch.Tensor:
     return acc
 
 
+# K-pass's staged route (csrc/blur_pass.cu): a block computes one segment
+# of a row, PASS_Q outputs a thread, at most PASS_MAX_SEG outputs a block
+# (64 threads; chip_smoke.time_route_limits times it beside segments of 960
+# and beside the global route at 3840x2160).
+PASS_Q = 4
+PASS_MAX_SEG = 256
+
+
+def pass_segment(w: int) -> int:
+    """Outputs of one block's segment for rows of width w: the row split
+    evenly into as few segments as PASS_MAX_SEG allows, rounded up to
+    PASS_Q."""
+    nseg = -(-w // PASS_MAX_SEG)
+    return -(-(-(-w // nseg)) // PASS_Q) * PASS_Q
+
+
+def pass_smem_bytes(seg: int, r: int) -> int:
+    """csrc/blur_pass.cu's shared memory at segment length seg and radius
+    r: the segment, its halo and the reach of the last 16-byte window load,
+    then the taps, both padded to four floats."""
+    nt4 = -(-(2 * r + 1) // 4) * 4
+    return (seg + nt4 + 4 + nt4) * 4
+
+
+def pass_route(w: int, r: int) -> str:
+    """Which route of K-pass runs for rows of width w at radius r: "staged"
+    (the segment and its halo in shared memory) while they fit, else
+    "global" (one thread an output, the window read through L1)."""
+    return "staged" if pass_smem_bytes(pass_segment(w), r) <= MAX_SMEM else "global"
+
+
+@functools.lru_cache(maxsize=16)
+def _taps_on(device: torch.device, taps: bytes) -> torch.Tensor:
+    """The f32 taps in device memory, uploaded once per tap set and device."""
+    return torch.from_numpy(np.frombuffer(taps, np.float32).copy()).to(device)
+
+
 def gaussian_blur_pass(x: torch.Tensor, taps) -> torch.Tensor:
     """One edge-clamped separable pass along the last axis of a contiguous
     f32 [C, H, W] tensor with f32 taps (K-pass)."""
     if x.device.type == "cpu":
         return gaussian_blur_pass_plain(x, taps)
-    taps = np.asarray(taps, np.float32)
+    taps = np.ascontiguousarray(taps, np.float32)
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("gaussian_blur_pass: expected a contiguous f32 [C, H, W] "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
@@ -447,11 +494,12 @@ def gaussian_blur_pass(x: torch.Tensor, taps) -> torch.Tensor:
     if x.numel() == 0:
         return out
     lib = load_library()
+    seg = pass_segment(w) if pass_route(w, len(taps) // 2) == "staged" else 0
     with torch.cuda.device(x.device):
-        taps_dev = torch.from_numpy(taps).to(x.device)
+        taps_dev = _taps_on(x.device, taps.tobytes())
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pfe_blur_pass(x.data_ptr(), taps_dev.data_ptr(), out.data_ptr(),
-                               c * h, w, len(taps), stream)
+                               c * h, w, len(taps), seg, stream)
     check(rc, "gaussian_blur_pass")
     gaussian_blur_pass.launches += 1
     return out

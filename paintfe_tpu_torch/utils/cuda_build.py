@@ -45,7 +45,8 @@ _SIGNATURES = {
     "pfe_median": (_P, _P, _I, _I, _I, _I, _I, _P),
     "pfe_warp_bilinear": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pfe_composite": (_P, _P, _P, _P, _I, _P, _P, _L, _P),
-    "pfe_blur_pass": (_P, _P, _P, _L, _I, _I, _P),
+    "pfe_composite_div_check": (_I, ctypes.c_float, _P, _P),
+    "pfe_blur_pass": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 # What load_library() did in this process: its seconds (nvcc's build

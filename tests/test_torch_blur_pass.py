@@ -58,3 +58,85 @@ def test_pass_wrapper_takes_the_plain_version_only_on_the_cpu():
     out = kernels.gaussian_blur_pass(x, gaussian_kernel(1.0))
     assert kernels.gaussian_blur_pass.launches == before
     assert torch.equal(out, kernels.gaussian_blur_pass_plain(x, gaussian_kernel(1.0)))
+
+
+def _blocked_pass(x, taps, seg):
+    """csrc/blur_pass.cu's staged route in numpy, index for index: a block
+    a segment of a row, the segment and its halo staged with clamped
+    indices (what is not staged is NaN, so a read past it shows), four
+    outputs a thread from an eight-value register window, the taps four at
+    a time with the last one to three guarded, full groups stored at once
+    and a partial group value by value."""
+    taps = np.asarray(taps, np.float32)
+    nt = len(taps)
+    r = nt // 2
+    rows, w = x.shape
+    nt4 = -(-nt // 4) * 4
+    span = seg + nt4 + 4
+    assert kernels.pass_smem_bytes(seg, r) == (span + nt4) * 4
+    tp = np.full(nt4, np.nan, np.float32)
+    tp[:nt] = taps
+    out = np.full_like(x, np.nan)
+    threads = -(-(seg // 4) // 32) * 32
+    for row in range(rows):
+        for seg0 in range(0, w, seg):
+            length = min(seg, w - seg0)
+            staged = -(-length // 4) * 4 + 2 * r
+            assert staged <= span
+            s = np.full(span, np.nan, np.float32)
+            i = np.arange(staged)
+            s[i] = x[row, np.clip(seg0 - r + i, 0, w - 1)]
+            for t in range(threads):
+                if 4 * t >= length:
+                    continue
+                acc = np.zeros(4, np.float32)
+                a = s[4 * t:4 * t + 4]
+                k = 0
+                while k < nt:
+                    b = s[4 * t + k + 4:4 * t + k + 8]
+                    v = np.concatenate([a, b[:3]])
+                    for c in range(min(4, nt - k)):
+                        acc = acc + v[c:c + 4] * tp[k + c]  # one f32 product, one f32 sum
+                    a = b
+                    k += 4
+                n = min(4, length - 4 * t)
+                out[row, seg0 + 4 * t:seg0 + 4 * t + n] = acc[:n]
+    return out
+
+
+# widths 1 and 3 (below one group), 53 and 511 (a scalar tail), 64 (whole
+# groups only), 2 and 5 at sigma 2 and 8 (W <= r: every tap clamps)
+@pytest.mark.parametrize("w,sigma,seg", [
+    (1, 0.5, None), (1, 2.0, None), (3, 0.5, None), (3, 2.0, None), (2, 2.0, None),
+    (5, 8.0, None), (53, 0.5, None), (53, 2.0, None), (53, 8.0, None), (53, 25.0, None),
+    (64, 2.0, None), (511, 2.0, None), (511, 2.0, 128), (511, 8.0, 64), (53, 2.0, 4),
+    (53, 8.0, 16), (64, 1.0, 32)])
+def test_blocked_sum_mirror_equals_the_plain_pass(w, sigma, seg):
+    rng = np.random.default_rng(w * 7 + int(sigma * 10))
+    x = (rng.random((3, w)) * 300 - 20).astype(np.float32)
+    taps = gaussian_kernel(sigma)
+    seg = kernels.pass_segment(w) if seg is None else seg
+    want = kernels.gaussian_blur_pass_plain(torch.from_numpy(x), taps).numpy()
+    np.testing.assert_array_equal(_blocked_pass(x, taps, seg), want)
+
+
+@pytest.mark.parametrize("w", [1, 3, 4, 5, 37, 53, 257, 511, 1024, 1025, 2160, 3840, 7680])
+def test_pass_segment_splits_a_row_evenly(w):
+    seg = kernels.pass_segment(w)
+    assert seg % kernels.PASS_Q == 0 and 0 < seg <= kernels.PASS_MAX_SEG
+    nseg = -(-w // seg)
+    assert nseg == -(-w // kernels.PASS_MAX_SEG)  # no more blocks than the cap needs
+    assert (nseg - 1) * seg < w <= nseg * seg  # every block has work
+    assert seg - -(-w // nseg) < kernels.PASS_Q  # and the split is even
+
+
+@pytest.mark.parametrize("w", [1, 53, 2160, 3840])
+def test_pass_route_keeps_the_staged_span_in_shared_memory(w):
+    seg = kernels.pass_segment(w)
+    staged = [r for r in range(0, 40000, 37) if kernels.pass_route(w, r) == "staged"]
+    assert staged and all(kernels.pass_smem_bytes(seg, r) <= kernels.MAX_SMEM for r in staged)
+    last = max(r for r in range(40000) if kernels.pass_route(w, r) == "staged")
+    assert kernels.pass_route(w, last + 1) == "global"
+    assert kernels.pass_smem_bytes(seg, last + 1) > kernels.MAX_SMEM
+    # every sigma the scripts use stays on the staged route
+    assert last > 3 * 1000

@@ -127,3 +127,65 @@ def test_kernel_wrapper_takes_the_plain_version_only_on_the_cpu():
         out.numpy(), kernels.composite_stack_plain(_t(layers), (3, 4), (1.0, 0.5)).numpy())
     with pytest.raises(ValueError, match="no layers"):
         kernels.composite_stack_kernel([], (), ())
+
+
+def test_unit_table_is_the_blends_own_divide():
+    """K-composite converts u8 -> f32 through a 256-entry table: each entry
+    must carry the bits of the divide that blend_u8 (here and in the JAX
+    package) computes."""
+    from paintfe_tpu_torch.utils.quant import ieee_div
+
+    table = kernels.composite_unit_table()
+    codes = np.arange(256, dtype=np.uint8)
+    assert table.dtype == np.float32 and table.shape == (256,)
+    np.testing.assert_array_equal(
+        table.view(np.uint32), ieee_div(_t(codes).float(), 255.0).numpy().view(np.uint32))
+    ref = np.asarray(jnp.asarray(codes).astype(jnp.float32) / 255.0)
+    np.testing.assert_array_equal(table.view(np.uint32), ref.view(np.uint32))
+
+
+def test_a_reciprocal_multiply_is_not_the_unit_table():
+    """Why the table holds divides: x * (1 / 255) in f32 rounds 126 of the
+    256 values differently from x / 255."""
+    x = np.arange(256, dtype=np.float32)
+    product = x * (np.float32(1.0) / np.float32(255.0))
+    assert int((product != kernels.composite_unit_table()).sum()) == 126
+
+
+@pytest.mark.parametrize("mode", [0, 1, 7, 13, 14, 16, 19, 21])
+def test_table_lookup_blend_equals_blend_u8(mode):
+    """blend_u8 with its two conversions replaced by lookups in the unit
+    table (what K-composite does) gives blend_u8's bytes."""
+    from paintfe_tpu_torch.core import blend as tblend
+
+    layers, _, _ = _stack(mode + 50, 2)
+    base, top = _t(layers[0]), _t(layers[1])
+    want = tblend.blend_u8(base, top, mode, 0.7)
+    table = torch.from_numpy(kernels.composite_unit_table())
+    base_f, top_f = table[base.long()], table[top.long()]
+    blended = tblend._branch(tblend.BlendMode(mode))(
+        base_f, top_f[..., 0:3], top_f[..., 3:4] * tblend.clip_opacity(0.7))
+    got = torch.where(top[..., 3:4] == 0, base, blended)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("mode", [m for m in range(25) if m not in (13, 14)])
+def test_every_mixer_maps_u8_pairs_into_zero_or_2_pow_minus_24_to_1(mode):
+    """What K-composite's shared reciprocal and its clamp-free quantisation
+    rest on: over all 65536 u8 (base, top) pairs a mixer gives 0 or a value
+    in [2^-24, 1], never a negative one and never one above 1."""
+    from paintfe_tpu_torch.core import blend as tblend
+
+    v = torch.from_numpy(kernels.composite_unit_table())
+    b, t = torch.meshgrid(v, v, indexing="ij")
+    mixed = tblend._RGB_MIXERS[tblend.BlendMode(mode)](b, t)
+    assert float(mixed.min()) >= 0.0 and float(mixed.max()) <= 1.0
+    positive = mixed[mixed > 0]
+    assert positive.numel() and float(positive.min()) >= 2.0 ** -24
+    # and the JAX package's mixer gives the same values
+    from paintfe_tpu.core import blend as jblend
+
+    ref = np.asarray(jblend._RGB_MIXERS[jblend.BlendMode(mode)](jnp.asarray(b.numpy()),
+                                                                jnp.asarray(t.numpy())))
+    np.testing.assert_array_equal(mixed.numpy().view(np.uint32),
+                                  np.broadcast_to(ref, mixed.shape).view(np.uint32))

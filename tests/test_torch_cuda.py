@@ -318,3 +318,121 @@ def test_preview_composite_on_the_card_equals_the_cpu(dev, preview):
     doc.preview = moved
     updated = composite_dirty_rect(doc, cache, full, (10, 5, 120, 110))
     assert np.array_equal(updated.cpu().numpy(), doc.composite(device="cpu"))
+
+
+def _offset_copy(t, offset):
+    """A contiguous copy of `t` starting `offset` bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 32, dtype=torch.uint8, device=t.device)
+    start = (-flat.data_ptr()) % 16 + offset
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# K-composite's entry takes 16-byte accesses only where every pointer of the
+# launch allows: layers allocated singly (with a scalar tail where H * W is
+# not a multiple of 4), a stacked tensor of odd size (its layers start 4
+# bytes off), one layer, the accumulator or one conceal plane off alignment
+@pytest.mark.parametrize("layout", ["single", "stacked", "layer+4", "init+8", "conceal+1",
+                                    "conceal sliced"])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 3), (2, 2), (37, 53), (64, 64), (45, 70)])
+def test_composite_kernel_vector_scalar_and_tail_paths(dev, shape, layout):
+    n = 6
+    layers, conceal, init = _stack(n, shape, 200 + shape[0], dev)
+    modes, opac = (0, 1, 16, 7, 13, 2), (1.0, 0.7, 1.0, 0.37, 0.5, 0.9)
+    want = kernels.composite_stack_plain(layers, modes, opac, conceal, init)
+    ls, ms = [l.clone() for l in layers], [m.clone() for m in conceal]
+    if layout == "stacked":
+        ls, ms = layers, conceal
+    elif layout == "layer+4":
+        ls[3] = _offset_copy(ls[3], 4)
+    elif layout == "init+8":
+        init = _offset_copy(init, 8)
+    elif layout == "conceal+1":
+        ms[2] = _offset_copy(ms[2], 1)
+    elif layout == "conceal sliced":
+        wide = torch.zeros((n, shape[0] + 1, shape[1]), dtype=torch.uint8, device=dev)
+        wide[:, 1:] = conceal
+        ms = [w[1:] for w in wide]  # contiguous rows, W bytes past the allocation
+    before = kernels.composite_stack_kernel.launches
+    out = kernels.composite_stack_kernel(ls, modes, opac, ms, init)
+    assert kernels.composite_stack_kernel.launches == before + 1
+    assert torch.equal(out, want)
+
+
+# opacities below 2^-20 leave the shared reciprocal for three __fdiv_rn
+@pytest.mark.parametrize("opacity", [9.6e-7, 9.5e-7, 1e-12, 1e-30, 1e-45])
+@pytest.mark.parametrize("mode", [0, 7, 13, 16, 21])
+def test_composite_kernel_at_tiny_opacities(dev, mode, opacity):
+    layers, conceal, init = _stack(3, (37, 53), 300 + mode, dev)
+    modes, opac = (0, mode, mode), (1.0, opacity, 1.0)
+    assert torch.equal(kernels.composite_stack_kernel(layers, modes, opac, conceal, init),
+                       kernels.composite_stack_plain(layers, modes, opac, conceal, init))
+
+
+# widths below the radius, around a group of 4 and around a segment
+@pytest.mark.parametrize("sigma", [0.5, 2.0, 8.0, 25.0])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 7, 8, 63, 255, 256, 257, 515, 1024, 1025])
+def test_blur_pass_kernel_at_edge_widths(dev, w, sigma):
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+
+    rng = np.random.default_rng(w)
+    x = torch.from_numpy((rng.random((2, 3, w)) * 300 - 20).astype(np.float32)).to(dev)
+    taps = gaussian_kernel(sigma)
+    assert kernels.pass_route(w, len(taps) // 2) == "staged"
+    before = kernels.gaussian_blur_pass.launches
+    out = kernels.gaussian_blur_pass(x, taps)
+    assert kernels.gaussian_blur_pass.launches == before + 1
+    assert torch.equal(out, kernels.gaussian_blur_pass_plain(x, taps))
+
+
+@pytest.mark.parametrize("preview", [None, (0, "blend"), (14, "blend"), (0, "eraser"),
+                                     (0, "replace")])
+def test_flatten_with_adjustment_and_empty_tiles_on_the_card_equals_the_cpu(dev, preview):
+    """Canvas.composite, composite_device and composite_dirty_rect with the
+    active-tile mask built on the card: an invert adjustment layer, tiles
+    empty in every layer, one tile only the active layer fills, one only the
+    preview fills."""
+    from paintfe_tpu_torch.core import canvas as C
+    from paintfe_tpu_torch.core import deep
+    from paintfe_tpu_torch.core.device import (DeviceLayerCache, composite_device,
+                                               composite_dirty_rect)
+
+    rng = np.random.default_rng(18)
+    doc = C.Canvas(width=150, height=130)
+    for k, mode in enumerate((0, 1, None, 2)):
+        layer = C.Layer.new(f"L{k}", 150, 130)
+        if mode is None:
+            layer.content = "adjustment"
+            layer.adjustment = deep.AdjustmentLayerData(kind=deep.AdjustmentKind.INVERT)
+            layer.opacity = 0.6
+        else:
+            layer.pixels = rng.integers(0, 256, (130, 150, 4), np.uint8)
+            layer.pixels[64:128, 64:128] = 0  # empty unless the preview fills it
+            layer.pixels[128:, 0:64] = 0  # empty in every layer
+            layer.pixels[0:64, 128:] = 180 if k == 3 else 0  # the active layer's alone
+            layer.blend_mode = C.BlendMode(mode)
+        doc.layers.append(layer)
+    doc.active_layer_index = 3
+    if preview is not None:
+        pv = np.zeros((130, 150, 4), np.uint8)
+        pv[10:60, 20:90] = rng.integers(0, 256, (50, 70, 4), np.uint8)
+        pv[70:90, 100:120] = 200
+        doc.preview = pv
+        doc.preview_blend_mode = C.BlendMode(preview[0])
+        doc.preview_is_eraser = preview[1] == "eraser"
+        doc.preview_replaces_layer = preview[1] == "replace"
+    want = doc.composite(device="cpu")
+    assert (want[128:, 0:64] == 0).all()
+    assert np.array_equal(doc.composite(device=dev), want)
+    cache = DeviceLayerCache(dev)
+    full = composite_device(doc, cache)
+    assert full.device.type == "cuda"
+    assert np.array_equal(full.cpu().numpy(), want)
+    px = doc.layers[1].pixels.copy()
+    px[30:120, 50:140] = rng.integers(0, 256, (90, 90, 4), np.uint8)
+    px[64:128, 64:128] = 0
+    doc.layers[1].pixels = px
+    updated = composite_dirty_rect(doc, cache, full, (50, 30, 139, 119))
+    assert np.array_equal(updated.cpu().numpy(), doc.composite(device="cpu"))

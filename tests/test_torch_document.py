@@ -120,6 +120,124 @@ def test_active_tile_mask_matches_jax(rect):
         np.testing.assert_array_equal(got, want)
 
 
+def _device_mask(doc, rect):
+    """active_tile_mask_device on the CPU, fed as the flatten feeds it: the
+    raw alpha planes of the visible raster layers and of the preview, cut to
+    the rect grown to the tile grid."""
+    ty0, tx0, rh, rw = tcanvas.tile_window(doc.height, doc.width, rect)
+    planes = [l.pixels for _, l in doc.visible_layers() if l.content != "adjustment"]
+    if doc.preview is not None:
+        planes.append(doc.preview)
+    alphas = [torch.from_numpy(p)[ty0:ty0 + rh, tx0:tx0 + rw, 3] for p in planes]
+    return tcanvas.active_tile_mask_device(alphas, doc.height, doc.width, rect)
+
+
+RECTS = [None, (0, 0, H, W), (60, 70, 40, 50), (127, 0, 3, W), (70, 5, 20, 30),
+         (0, 128, 64, 22), (64, 64, 64, 64)]
+
+
+@pytest.mark.parametrize("preview", [None, (0, "blend"), (0, "eraser"), (0, "replace")])
+@pytest.mark.parametrize("rect", RECTS)
+def test_device_tile_mask_equals_the_host_mask_and_jax(rect, preview):
+    """The preview covers part of the tile that is empty in every layer;
+    with a replacing preview the active layer's own alpha still counts (the
+    mask reads the raw layers)."""
+    jdoc = _document(40, ADJUSTMENTS[2], preview)
+    if preview is not None:
+        jdoc.preview[70:90, 100:120] = 200
+    for k, layer in enumerate(jdoc.layers):  # a tile only the active layer fills
+        layer.pixels[0:64, 128:] = 180 if k == 4 else 0
+    doc = tcanvas.canvas_from_document(jdoc)
+    got = _device_mask(doc, rect)
+    bh, bw = (H, W) if rect is None else rect[2:]
+    assert got.dtype == torch.bool and tuple(got.shape) == (bh, bw)
+    host = doc.active_tile_mask(doc.visible_layers(), rect)
+    want = jdoc.active_tile_mask([(i, l) for i, l in enumerate(jdoc.layers)
+                                  if jdoc.layer_effectively_visible(i)], rect)
+    assert (host is None) == (want is None)
+    if want is None:  # every tile of the window holds data
+        assert bool(got.all())
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), host)
+
+
+@pytest.mark.parametrize("rect", [None, (3, 5, 100, 120)])
+def test_device_tile_mask_is_all_true_where_the_host_mask_is_none(rect):
+    jdoc = _document(41)
+    jdoc.layers[0].pixels = jdoc.layers[0].pixels.copy()
+    jdoc.layers[0].pixels[..., 3] = 9  # the base layer fills every tile
+    doc = tcanvas.canvas_from_document(jdoc)
+    assert doc.active_tile_mask(doc.visible_layers(), rect) is None
+    assert bool(_device_mask(doc, rect).all())
+
+
+@pytest.mark.parametrize("size", [(1, 1), (63, 65), (64, 128), (200, 70)])
+def test_device_tile_mask_on_canvas_sizes_off_the_tile_grid(size):
+    h, w = size
+    rng = np.random.default_rng(h * w)
+    doc = tcanvas.Canvas(width=w, height=h)
+    for k in range(2):
+        layer = tcanvas.Layer.new(f"L{k}", w, h)
+        layer.pixels = _rand(rng, (h, w, 4))
+        layer.pixels[:, : w // 2] = 0
+        layer.pixels[h // 2:, :] = 0
+        doc.layers.append(layer)
+    for rect in (None, (h // 3, w // 3, h - h // 3, w - w // 3)):
+        host = doc.active_tile_mask(doc.visible_layers(), rect)
+        got = _device_mask(doc, rect)
+        if host is None:
+            assert bool(got.all())
+        else:
+            np.testing.assert_array_equal(got.numpy(), host)
+
+
+@pytest.mark.parametrize("preview", [(0, "blend"), (14, "blend"), (0, "eraser"),
+                                     (0, "replace")])
+def test_flatten_with_an_adjustment_layer_and_a_preview_matches_jax(preview):
+    """The flatten's device-built tile mask under each preview variant, the
+    preview reaching into the tile that is empty in every layer; whole
+    canvas, composite_device and a dirty rect that cuts tiles."""
+    jdoc = _document(20, ADJUSTMENTS[4], preview)  # invert: an unmasked empty tile shows
+    jdoc.preview[70:90, 100:120] = 200
+    # a tile that only the active layer fills: a replacing preview drops the
+    # layer's alpha from the fold, but the mask still reads the raw layer
+    for k, layer in enumerate(jdoc.layers):
+        layer.pixels[0:64, 128:] = 180 if k == 4 else 0
+        layer.pixels[128:, 0:64] = 0  # one tile stays empty whatever the preview does
+    doc = tcanvas.canvas_from_document(jdoc)
+    want = jdoc.composite()
+    np.testing.assert_array_equal(doc.composite(device="cpu"), want)
+    cache, jcache = tdevice.DeviceLayerCache("cpu"), jdevice.DeviceLayerCache()
+    full = tdevice.composite_device(doc, cache)
+    np.testing.assert_array_equal(full.numpy(), want)
+    jfull = jdevice.composite_device(jdoc, jcache)
+    pv = jdoc.preview.copy()
+    pv[70:90, 100:120] = 0  # the empty tile loses its only data
+    pv[30:50, 60:100] = 77
+    jdoc.preview = pv
+    doc.preview = pv.copy()
+    # the rect cuts tiles on its left and top and covers the emptied tile
+    updated = tdevice.composite_dirty_rect(doc, cache, full, (55, 25, 127, 127))
+    jupdated = jdevice.composite_dirty_rect(jdoc, jcache, jfull, (55, 25, 127, 127))
+    np.testing.assert_array_equal(updated.numpy(), np.asarray(jupdated))
+    np.testing.assert_array_equal(updated.numpy(), doc.composite(device="cpu"))
+    assert (updated.numpy()[64:128, 64:128] == 0).all()
+
+
+def test_flatten_builds_its_tile_mask_without_the_host_pass(monkeypatch):
+    """The flatten never calls the host definition of the mask."""
+    doc = tcanvas.canvas_from_document(_document(43, ADJUSTMENTS[2]))
+    want = doc.composite(device="cpu")
+
+    def no_host_mask(self, vis, rect=None):
+        raise AssertionError("the flatten ran the host pass over the layers")
+
+    monkeypatch.setattr(tcanvas.Canvas, "active_tile_mask", no_host_mask)
+    np.testing.assert_array_equal(doc.composite(device="cpu"), want)
+    assert (want[64:128, 64:128] == 0).all()
+
+
 def test_composite_without_a_card_raises_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
