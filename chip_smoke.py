@@ -10,10 +10,14 @@ It builds the port's CUDA kernels from csrc/, then:
      byte (tolerance 0), over several radii, fields, modes and shapes:
      K-blur (csrc/gaussian_blur.cu) against gaussian_blur_plain (with the
      radii at each limit of its tile geometry), K-chain (csrc/fused_chain.cu)
-     against the plain fused_chain, K-median (csrc/median.cu) against
-     median_plain (every network radius, the first counting one, images
-     smaller than the window), K-warp (csrc/warp_bilinear.cu)
-     in both modes against gather_bilinear_plain, K-composite
+     against the plain fused_chain (both tile widths and every route limit,
+     at opacities on both sides of its shared reciprocal, which is counted
+     against __fdiv_rn over every u8 input), K-median (csrc/median.cu)
+     against median_plain (every network radius, the first counting one,
+     images smaller than the window), K-warp (csrc/warp_bilinear.cu) in
+     both modes against gather_bilinear_plain (row widths and field
+     offsets that take its vector path, its scalar path and its tail, and
+     batches), K-composite
      (csrc/composite.cu) against composite_stack_plain over all 25 blend
      modes, opacities, conceal masks and initial accumulators, on pointers
      that take its vector path, its scalar path and its scalar tail, with
@@ -48,7 +52,9 @@ It builds the port's CUDA kernels from csrc/, then:
      kernels once per image; K-composite launches once per raster run);
   3. times K-median at several radii, K-blur at several sigmas (one frame
      and a batch), K-chain, K-composite over stack depths, conceal masks
-     and mode mixes, and K-pass at several sigmas along both axes, then
+     and mode mixes, K-pass at several sigmas along both axes, and K-warp
+     in both modes on a smooth and a random field (one frame and a batch,
+     beside F.grid_sample), then
      each kernel beside its plain version at
      3840x2160 and beside one PyTorch call computing the same function
      where there is one, and each route beside its neighbour at the radii
@@ -257,8 +263,45 @@ def _overlay(gen, shape, dev):
     return ov
 
 
+def _chain_limit_sigmas():
+    """Sigmas whose radius takes each of K-chain's tile widths (4 sums a
+    thread up to BLUR_SHORT_MAX_R, 8 above), its last tiled radius and the
+    first past it (K-blur's tile, then the tail alone), and K-blur's last
+    tiled radius and its first split one."""
+    from paintfe_tpu_torch.ops.kernels import (BLUR_SHORT_MAX_R, blur_tile_rows,
+                                               chain_tile_rows)
+
+    radii = range(0, 300)
+    chain = next(r for r in radii if chain_tile_rows(r) == 0)
+    split = next(r for r in radii if blur_tile_rows(r) == 0)
+    return [(r - 0.5) / 3 for r in (1, BLUR_SHORT_MAX_R, BLUR_SHORT_MAX_R + 1, chain - 1,
+                                    chain, split - 1, split)]
+
+
+# K-chain's opacities: the headline's, div3's limit (2^-20, the shared
+# reciprocal) and the one below it (three correctly rounded divides), full
+CHAIN_OPACITIES = (0.6, 2.0 ** -20, 2.0 ** -21, 1.0)
+
+
+def _div_counts(entry, *args):
+    """Run one of the exhaustive quotient counts (pfe_composite_div_check,
+    pfe_chain_div_check) and return (differing, compared)."""
+    import torch
+
+    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    check(getattr(load_library(), entry)(*args, counts.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream), entry)
+    return tuple(counts.tolist())
+
+
 def check_chain(dev, gen, errs):
+    import ctypes
+
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
     from paintfe_tpu_torch.ops.fused_chain import fused_chain, fused_chain_kernel
+    from paintfe_tpu_torch.ops.kernels import blur_sums, chain_tile_rows
 
     print("K-chain vs plain fused_chain (byte-equal):")
     for shape in [(130, 201), UHD]:
@@ -274,6 +317,33 @@ def check_chain(dev, gen, errs):
     _compare("sigma=80 (K-blur + tail route) 201x130",
              fused_chain_kernel(img, ov, sigma=80.0),
              fused_chain(img, ov, sigma=80.0), errs)
+    # each tile width and route limit, at every opacity of CHAIN_OPACITIES
+    img[40:43, :, 3] = 0
+    for sigma in _chain_limit_sigmas():
+        r = len(gaussian_kernel(sigma)) // 2
+        th = chain_tile_rows(r)
+        route = f"{blur_sums(r)} sums x {th}-row tile" if th else "K-blur + tail"
+        for opacity in CHAIN_OPACITIES:
+            _compare(f"sigma={sigma:.4f} r={r} ({route}) opacity={opacity:g} 201x130",
+                     fused_chain_kernel(img, ov, sigma=sigma, blend_opacity=opacity),
+                     fused_chain(img, ov, sigma=sigma, blend_opacity=opacity), errs)
+    img = _rand(gen, UHD, dev)
+    ov = _overlay(gen, UHD, dev)
+    for opacity in (2.0 ** -20, 2.0 ** -21):
+        _compare(f"sigma=2.0 opacity={opacity:g} 3840x2160",
+                 fused_chain_kernel(img, ov, blend_opacity=opacity),
+                 fused_chain(img, ov, blend_opacity=opacity), errs)
+    # the tail's quotients against __fdiv_rn over every u8 input, dispatched
+    # as the chain dispatches (div3 at 2^-20 and above)
+    differ = compared = 0
+    for opacity in CHAIN_OPACITIES:
+        d, c = _div_counts("pfe_chain_div_check", ctypes.c_float(opacity))
+        differ, compared = differ + d, compared + c
+    print(f"  chain's soft-light quotients against __fdiv_rn, every u8 (base, base alpha, "
+          f"overlay, overlay alpha), opacities {CHAIN_OPACITIES}: {differ} of {compared} "
+          "differ")
+    if differ or not compared:
+        raise CheckFailed("K-chain's quotients differ from __fdiv_rn")
 
 
 def check_median(dev, gen, errs):
@@ -314,24 +384,58 @@ def _warp_fields(gen, h, w, dev):
             for k, (x, y) in fields.items()}
 
 
+def _field_offset(t, offset):
+    """A contiguous copy of the f32 tensor `t` whose first byte lies
+    `offset` bytes (a multiple of 4) past a 16-byte boundary."""
+    import torch
+
+    flat = torch.empty(t.numel() + 8, dtype=torch.float32, device=t.device)
+    start = (-flat.data_ptr()) % 16 // 4 + offset // 4
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == offset % 16 and out.is_contiguous()
+    return out
+
+
 def check_warp(dev, gen, errs):
+    import torch
+
     from paintfe_tpu_torch.ops.warp_kernel import (gather_bilinear_plain,
-                                                   gather_bilinear_u8)
+                                                   gather_bilinear_u8, warp_split)
 
     print("K-warp vs gather_bilinear_plain (byte-equal):")
-    for shape in [(257, 511), UHD]:
+
+    def path(sx, sy, w):
+        kind, _, tail = warp_split(w, sx.data_ptr(), sy.data_ptr(), 0)
+        return f"{kind} path" + (f", tail of {tail}" if tail else "")
+
+    for shape in [(257, 511), UHD, (UHD[0], UHD[1] - 2), (UHD[0], UHD[1] + 1)]:
         src = _rand(gen, shape, dev)
         for name, (sx, sy) in _warp_fields(gen, *shape, dev).items():
             for mode in ("zero", "clamp"):
-                _compare(f"{mode} {name} {shape[1]}x{shape[0]}",
+                _compare(f"{mode} {name} {shape[1]}x{shape[0]} ({path(sx, sy, shape[1])})",
                          gather_bilinear_u8(src, sx, sy, mode),
                          gather_bilinear_plain(src, sx, sy, mode), errs)
-    for shape in [(3, 257, 511), (4,) + UHD]:  # one field for the batch
+        del src
+        torch.cuda.empty_cache()
+    # the 4K fields 4 and 8 bytes off a 16-byte boundary: the scalar path
+    src = _rand(gen, UHD, dev)
+    for name, (sx, sy) in _warp_fields(gen, *UHD, dev).items():
+        for fx, fy, how in ((_field_offset(sx, 4), sy, "sx 4 bytes off"),
+                            (sx, _field_offset(sy, 8), "sy 8 bytes off")):
+            for mode in ("zero", "clamp"):
+                _compare(f"{mode} {name} {UHD[1]}x{UHD[0]}, {how} ({path(fx, fy, UHD[1])})",
+                         gather_bilinear_u8(src, fx, fy, mode),
+                         gather_bilinear_plain(src, fx, fy, mode), errs)
+    for shape in [(3, 257, 511), (4,) + UHD, (2, UHD[0], UHD[1] + 1)]:  # one field, a batch
         batch = _rand(gen, shape, dev)
         sx, sy = _warp_fields(gen, *shape[1:], dev)["bulge 0.5"]
-        _compare(f"clamp bulge batch [{','.join(map(str, shape))},4]",
+        _compare(f"clamp bulge batch [{','.join(map(str, shape))},4] "
+                 f"({path(sx, sy, shape[2])})",
                  gather_bilinear_u8(batch, sx, sy, "clamp"),
                  gather_bilinear_plain(batch, sx, sy, "clamp"), errs)
+        del batch
+        torch.cuda.empty_cache()
 
 
 def _composite_inputs(gen, n, shape, dev):
@@ -414,11 +518,8 @@ def check_composite_paths(dev, gen, errs):
     counted against __fdiv_rn over every u8 input."""
     import ctypes
 
-    import torch
-
     from paintfe_tpu_torch.ops.kernels import (composite_stack_kernel,
                                                composite_stack_plain)
-    from paintfe_tpu_torch.utils.cuda_build import check, load_library
 
     print("K-composite vector path, scalar path and scalar tail (byte-equal):")
     modes = [0, 1, 16, 7, 13, 14, 21, 2]
@@ -451,17 +552,10 @@ def check_composite_paths(dev, gen, errs):
                      composite_stack_kernel(stacked, ms, op, conceal, init),
                      composite_stack_plain(stacked, ms, op, conceal, init), errs, quiet=True)
     print("  ok  opacities below 2^-20 (exact divides), 4 modes x 4 opacities")
-    lib = load_library()
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
     differ = compared = 0
     for mode in (0, 1, 7, 16, 19, 21):
         for opacity in (1.0, 0.37, 2.0 ** -20):
-            counts.zero_()
-            check(lib.pfe_composite_div_check(mode, ctypes.c_float(opacity),
-                                              counts.data_ptr(), stream),
-                  "pfe_composite_div_check")
-            d, c = counts.tolist()
+            d, c = _div_counts("pfe_composite_div_check", mode, ctypes.c_float(opacity))
             differ, compared = differ + d, compared + c
     print(f"  shared reciprocal against __fdiv_rn, every u8 (base, base alpha, top, top "
           f"alpha), 6 modes x 3 opacities: {differ} of {compared} quotients differ")
@@ -853,7 +947,11 @@ def drive_layered_path(dev, tmp):
                 if not np.array_equal(got, want):
                     raise CheckFailed(f"layered {tag}: {name}.png differs from the "
                                       "plain route")
-    save_pfe(_plain_layered(root / "serial" / "d0.pfe", dev), str(root / "want.pfe"))
+    # -f pfe times no stage (as the JAX CLI): the write is timed here
+    want_doc = _plain_layered(root / "serial" / "d0.pfe", dev)
+    t0 = time.perf_counter()
+    save_pfe(want_doc, str(root / "want.pfe"))
+    print(f"  layered: save_pfe of one 3840x2160 document {time.perf_counter() - t0:.3f} s")
     if (root / "out_pfe" / "d0.pfe").read_bytes() != (root / "want.pfe").read_bytes():
         raise CheckFailed("layered pfe: d0.pfe differs from the plain route's bytes")
     processed = _plain_layered(root / "serial" / "d1.pfe", dev)
@@ -1058,10 +1156,10 @@ def time_cases(dev, gen, card):
     """K-median at MEDIAN_RADII, K-blur at BLUR_SIGMAS on one 3840x2160
     frame and on a batch of BATCH, K-chain at sigma 2, K-composite at
     COMPOSITE_DEPTHS with and without conceal masks, on its fast path and
-    on divide-heavy modes, and K-pass at PASS_SIGMAS along both axes, each
-    the median of TIMED_RUNS CUDA-event timings of one call beside its
-    bound, and its queued device time (_queued_ms).  Prints one line a case
-    and returns them as dicts."""
+    on divide-heavy modes, K-pass at PASS_SIGMAS along both axes, and
+    K-warp (_warp_cases), each the median of TIMED_RUNS CUDA-event timings
+    of one call beside its bound, and its queued device time (_queued_ms).
+    Prints one line a case and returns them as dicts."""
     from paintfe_tpu_torch.ops.filters import gaussian_kernel
     from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
     from paintfe_tpu_torch.ops.kernels import (composite_stack_kernel, gaussian_blur_fused,
@@ -1137,16 +1235,75 @@ def time_cases(dev, gen, card):
             cases.append((f"K-pass sigma={sigma} one pass f32 {list(x.shape)}",
                           lambda x=x, taps=taps: gaussian_blur_pass(x, taps),
                           _bound(2 * 4 * 4 * px, 2 * len(taps) * 4 * px, F32_OPS_PER_S)))
+    library, extra = _warp_cases(gen, dev, img, batch, cases)
     print(f"timed cases, CUDA events, median of {TIMED_RUNS} [card: {card}]:")
     result = []
     for name, fn, (bound_ms, bound_by) in cases:
         ms = _time_ms(fn)
         queued = _queued_ms(fn, ms)
-        result.append({"case": name, "ms": ms, "queued_ms": queued, "bound_ms": bound_ms,
-                       "bound_by": bound_by})
+        row = {"case": name, "ms": ms, "queued_ms": queued, "bound_ms": bound_ms,
+               "bound_by": bound_by, **extra.get(name, {})}
+        note = "".join(f", {k} {v:.3f}" for k, v in extra.get(name, {}).items())
+        if name in library:
+            row["library_ms"] = _time_ms(library[name])
+            note += f", F.grid_sample f32 border {row['library_ms']:.4f} ms"
+        result.append(row)
         print(f"  {name}: {ms:.4f} ms (queued {queued:.4f} ms), bound {bound_ms:.4f} ms "
-              f"by {bound_by} ({bound_ms / ms * 100:.1f}% of it) [card: {card}]")
+              f"by {bound_by} ({bound_ms / ms * 100:.1f}% of it){note} [card: {card}]")
     return result
+
+
+def _l2_sector_mb(sx, sy, hs, ws, images):
+    """The L2 traffic of K-warp's taps in MB, if each pixel's taps cost the
+    distinct 32-byte sectors they touch (two rows, one or two sectors a
+    row), for `images` images sharing the field."""
+    import torch
+
+    x0 = torch.floor(sx).clamp(-1, ws).long()
+    y0 = torch.floor(sy).clamp(-1, hs).long()
+    s0 = x0.clamp(0, ws - 1) // 8
+    s1 = (x0 + 1).clamp(0, ws - 1) // 8
+    rows = 1 + (y0.clamp(0, hs - 1) != (y0 + 1).clamp(0, hs - 1)).long()
+    return float((rows * (1 + (s0 != s1).long())).sum()) * 32 * images / 1e6
+
+
+def _warp_cases(gen, dev, img, batch, cases):
+    """K-warp's timed cases, appended to `cases`: both modes on the bulge
+    0.5 field and on the random field that reaches outside the source, one
+    3840x2160 frame and a batch of BATCH.  Returns each case's yardstick
+    (F.grid_sample, f32, border, align_corners: clamp mode's function) and,
+    for the random field, the taps' L2 sector traffic: its taps land
+    anywhere in the 33 MB source, which L2 (50 MB) holds, so its bound stays
+    the device memory one and the sectors say what it moves instead."""
+    import torch
+    import torch.nn.functional as F
+
+    from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
+
+    h, w = UHD
+    px = h * w
+    frame = px * 4
+    fields = _warp_fields(gen, h, w, dev)
+    frames = [(x, n, shape, (x[None] if n == 1 else x).permute(0, 3, 1, 2).float().contiguous())
+              for x, n, shape in ((img, 1, "3840x2160"), (batch, BATCH, f"[{BATCH},2160,3840,4]"))]
+    library, extra = {}, {}
+    for field in ("bulge 0.5", "random, out of source"):
+        sx, sy = fields[field]
+        grid = torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], -1)[None]
+        for x, n, shape, planar in frames:
+            grid_n = grid.expand(n, -1, -1, -1).contiguous()
+            for mode in ("clamp", "zero"):
+                name = f"K-warp {mode} {field} field {shape}"
+                # the source, the two f32 fields (shared) and the output once;
+                # 12 f32 operations a channel, 4 a pixel for the fractions
+                cases.append((name, lambda x=x, sx=sx, sy=sy, mode=mode:
+                              gather_bilinear_u8(x, sx, sy, mode),
+                              _bound(2 * frame * n + 8 * px, 52 * px * n, F32_OPS_PER_S)))
+                library[name] = (lambda planar=planar, grid_n=grid_n: F.grid_sample(
+                    planar, grid_n, mode="bilinear", padding_mode="border", align_corners=True))
+                if field.startswith("random"):
+                    extra[name] = {"l2_sector_mb": _l2_sector_mb(sx, sy, h, w, n)}
+    return library, extra
 
 
 def time_route_limits(dev, gen, card):
@@ -1389,6 +1546,9 @@ def main() -> int:
 
     load_library()
     print(f"kernel build: {BUILD_INFO['seconds']:.3f} s -> {BUILD_INFO['library']}")
+    if BUILD_INFO["sources"]:  # a fresh build: each nvcc's own time, all run at once
+        print("  nvcc, one process a source: " + ", ".join(
+            f"{name} {s:.1f} s" for name, s in BUILD_INFO["sources"].items()))
     if BUILD_INFO["log"]:
         for line in pathlib.Path(BUILD_INFO["log"]).read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:

@@ -221,8 +221,8 @@ def run_one(input_path: pathlib.Path, output_path: pathlib.Path,
         _commit_script_result(canvas, idx, result, new_w, new_h, canvas_ops)
 
     if fmt == "pfe":
-        with timer.stage("encode"):
-            pfe.save_pfe(canvas, str(output_path))
+        # untimed, as the JAX CLI leaves it: --profile prints no stage for it
+        pfe.save_pfe(canvas, str(output_path))
         return
 
     if flatten and (len(canvas.layers) > 1 or deep_export.needs_deep_export(canvas)):

@@ -14,7 +14,7 @@ so the interactive path and the host flatten give identical bytes.
 from __future__ import annotations
 
 import weakref
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,7 +27,9 @@ class DeviceLayerCache:
     Entries hold the host array they were uploaded from and revalidate by
     object identity: every op REPLACES ``layer.pixels``/``layer.mask`` with
     a fresh array and never writes one in place (an in-place writer would
-    be served the stale upload).  Because the entry pins the host array, a
+    be served the stale upload).  ``generation`` is for callers that carry
+    explicit counters: a changed counter uploads again even when the host
+    array is the same object.  Because the entry pins the host array, a
     recycled ``id()`` can never alias a dead buffer.  A weakref finalizer
     evicts a layer's entries when the layer itself is garbage-collected
     (renderer.rs frees textures for dropped layers, :427-447)."""
@@ -36,25 +38,38 @@ class DeviceLayerCache:
         from paintfe_tpu_torch.utils.device import resolve_device
 
         self.device = resolve_device(device)
-        # (layer id, slot) -> (host array, device tensor, weakref)
-        self._cache: Dict[Tuple[int, str], Tuple[object, torch.Tensor, object]] = {}
+        # (layer id, slot) -> (generation, host array, device tensor, weakref)
+        self._cache: Dict[Tuple[int, str], Tuple[int, object, torch.Tensor, object]] = {}
 
-    def get(self, layer, slot: str = "pixels") -> torch.Tensor:
+    def get(self, layer, generation: Optional[int] = None,
+            slot: str = "pixels") -> torch.Tensor:
         """Device tensor for `layer.pixels` (or `layer.mask` with
-        slot="mask"), uploading only when stale."""
+        slot="mask"), uploading only when stale: a new host array, or a
+        `generation` other than the one the entry was uploaded at."""
         host = layer.pixels if slot == "pixels" else layer.mask
         key = (id(layer), slot)
+        gen = generation if generation is not None else -1
         hit = self._cache.get(key)
-        if hit is not None and hit[0] is host:
-            return hit[1]
+        if hit is not None:
+            old_gen, old_host, dev, _ = hit
+            if old_host is host and (generation is None or old_gen == gen):
+                return dev
         dev = upload(host, self.device)
         ref = weakref.ref(layer, lambda _, k=key, c=self._cache: c.pop(k, None))
-        self._cache[key] = (host, dev, ref)
+        self._cache[key] = (gen, host, dev, ref)
         return dev
+
+    def invalidate(self, layer):
+        """Drop both of a layer's entries: its next get uploads again."""
+        self._cache.pop((id(layer), "pixels"), None)
+        self._cache.pop((id(layer), "mask"), None)
+
+    def clear(self):
+        self._cache.clear()
 
     def memory_bytes(self) -> int:
         """Device-memory accounting (renderer.rs:953-965 analogue)."""
-        return sum(dev.numel() * dev.element_size() for _, dev, _ in self._cache.values())
+        return sum(dev.numel() * dev.element_size() for _, _, dev, _ in self._cache.values())
 
     def resident_count(self) -> int:
         return len({lid for lid, _ in self._cache})

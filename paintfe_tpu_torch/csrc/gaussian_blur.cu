@@ -16,7 +16,8 @@
 // computes q = 8 adjacent H sums from a register window, so a loaded value
 // serves up to 8 sums; the V pass does the same down the columns of the
 // float4 sums in shared memory.  Taps live in constant memory and are read
-// in a run-time loop: one kernel serves every radius.  The wrapper
+// in a run-time loop: one kernel serves every radius (K-chain runs the
+// same tile with its own taps and epilogue).  The wrapper
 // (ops/kernels.py blur_tile_rows, blur_sums) runs 128-row tiles up to
 // r = 140, and 64-row tiles of q = 4 sums a thread up to r = 4, where the
 // short sums leave the SM idle between the staging and the passes unless
@@ -27,6 +28,30 @@
 #include "blur_tile.cuh"
 
 namespace pfe {
+
+// Tap table of the tiled kernel.  A tile only fits shared memory up to a
+// radius of (232448 / (kTileW * 16) - 8) / 2 = 223, i.e. 447 taps; larger
+// radii take the split kernels, which read their taps from device memory.
+constexpr int kMaxConstTaps = 512;
+
+// `static`: this translation unit's own table, set before each launch on
+// the launching stream (ROADMAP C7: right while every caller launches on
+// one stream).
+static __constant__ float c_taps[kMaxConstTaps];
+
+struct ConstTaps {
+  __device__ __forceinline__ float operator()(int k) const { return c_taps[k]; }
+};
+
+// The V pass's epilogue: each sum rounded and packed into dst.
+struct RoundStore {
+  uint32_t* dst;
+  struct Loaded {};
+  __device__ __forceinline__ Loaded load(int, int) const { return {}; }
+  __device__ __forceinline__ void store(float4 v, size_t o, const Loaded&, int) const {
+    dst[o] = round_pack(v);
+  }
+};
 
 // Q sums a thread; kMinBlocks blocks an SM bound the registers.
 template <int Q, int kMinBlocks>
@@ -39,8 +64,26 @@ blur_tiled_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
   const size_t plane = static_cast<size_t>(H) * W;
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * th;
-  blur_h_pass<Q>(src + blockIdx.z * plane, hs, stage, H, W, x0, y0, th, r, nt, chunk);
-  blur_v_pass<Q>(hs, dst + blockIdx.z * plane, H, W, x0, y0, th, r, nt);
+  blur_h_pass<Q>(src + blockIdx.z * plane, hs, stage, H, W, x0, y0, th, r, nt, chunk,
+                 ConstTaps{});
+  blur_v_pass<Q>(hs, H, W, x0, y0, th, r, nt, ConstTaps{}, RoundStore{dst + blockIdx.z * plane});
+}
+
+// The split route's plain conversions and rounding.
+__device__ __forceinline__ float4 unpack(uint32_t p) {
+  return make_float4(static_cast<float>(p & 0xFFu),
+                     static_cast<float>((p >> 8) & 0xFFu),
+                     static_cast<float>((p >> 16) & 0xFFu),
+                     static_cast<float>(p >> 24));
+}
+
+__device__ __forceinline__ float round_u8f(float x) {
+  return fminf(fmaxf(floorf(x + 0.5f), 0.0f), 255.0f);
+}
+
+__device__ __forceinline__ uint32_t pack(float r, float g, float b, float a) {
+  return static_cast<uint32_t>(r) | (static_cast<uint32_t>(g) << 8) |
+         (static_cast<uint32_t>(b) << 16) | (static_cast<uint32_t>(a) << 24);
 }
 
 // Split route, H pass: tmp[b, y, x] = sum_k taps[k] * src[b, y, clamp(x+k-r)].

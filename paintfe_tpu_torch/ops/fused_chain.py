@@ -5,25 +5,29 @@ Counterpart of paintfe_tpu/ops/fused_chain.py.  `fused_chain` is the plain
 version, composed from the port's public ops; `fused_chain_kernel` runs the
 whole chain in one hand-written CUDA kernel (K-chain, csrc/fused_chain.cu)
 for a CUDA tensor and takes the plain version for a CPU tensor.  Both give
-the bytes of chaining the script-level ops.
+the bytes of chaining the script-level ops.  The kernel reads its taps and
+levels table from device memory, uploaded once per sigma and per (black,
+white, gamma) and cached here.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from paintfe_tpu_torch.core.blend import BlendMode, blend_u8, clip_opacity
 from paintfe_tpu_torch.ops.filters import gaussian_kernel
-from paintfe_tpu_torch.ops.kernels import (check_rgba_u8, gaussian_blur_fused,
-                                           gaussian_blur_plain, tile_rows)
+from paintfe_tpu_torch.ops.kernels import (_taps_on, blur_sums, chain_tile_rows,
+                                           check_rgba_u8, device_guard,
+                                           gaussian_blur_fused, gaussian_blur_plain,
+                                           launch_stream)
 from paintfe_tpu_torch.parallel.pipeline import (_bc_device, _levels_device,
                                                  _sepia_device, bc_factor,
                                                  levels_lut)
 
 f32 = np.float32
-
-_LUT_SMEM = 256  # shared memory of the kernel's levels table (kLutBytes)
 
 
 def fused_chain(img, overlay, *, sigma=2.0, brightness=10.0, contrast=20.0,
@@ -40,12 +44,30 @@ def fused_chain(img, overlay, *, sigma=2.0, brightness=10.0, contrast=20.0,
     return blend_u8(x, overlay, blend_mode, blend_opacity)
 
 
+@functools.lru_cache(maxsize=16)
 def _tail_params(brightness, contrast, sepia_strength, blend_opacity):
     """The five f32 scalars of the kernel's pointwise tail, computed as the
-    JAX package's _make_chain_kernel does."""
+    JAX package's _make_chain_kernel does; once per set of arguments, as a
+    read-only array."""
     sep_s = f32(np.clip(sepia_strength, 0.0, 1.0))
-    return np.array([f32(brightness), bc_factor(contrast), sep_s,
-                     f32(1.0) - sep_s, clip_opacity(blend_opacity)], f32)
+    params = np.array([f32(brightness), bc_factor(contrast), sep_s,
+                       f32(1.0) - sep_s, clip_opacity(blend_opacity)], f32)
+    params.setflags(write=False)
+    return params
+
+
+@functools.lru_cache(maxsize=16)
+def _chain_taps(device: torch.device, sigma: float):
+    """The blur's taps on `device`, uploaded once per sigma, and their count."""
+    taps = gaussian_kernel(sigma)
+    return _taps_on(device, taps.tobytes()), len(taps)
+
+
+@functools.lru_cache(maxsize=16)
+def _levels_on(device: torch.device, black: float, white: float, gamma: float):
+    """The 256-entry levels table on `device`, built and uploaded once per
+    (black, white, gamma)."""
+    return torch.from_numpy(levels_lut(black, white, gamma)).to(device)
 
 
 def fused_chain_kernel(img, overlay, *, sigma=2.0, brightness=10.0,
@@ -66,30 +88,31 @@ def fused_chain_kernel(img, overlay, *, sigma=2.0, brightness=10.0,
                          "shape and device")
     from paintfe_tpu_torch.utils.cuda_build import check, load_library
 
-    taps = gaussian_kernel(float(sigma))
-    nt = len(taps)
-    r = nt // 2
     h, w = img.shape[:2]
-    params = _tail_params(brightness, contrast, sepia_strength, blend_opacity)
-    lut = levels_lut(black, white, gamma)
     out = torch.empty_like(img)
     if h * w == 0:
         return out
     lib = load_library()
-    th = tile_rows(r, _LUT_SMEM)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    params = _tail_params(brightness, contrast, sepia_strength, blend_opacity)
+    device = img.device
+    with device_guard(device):
+        taps, nt = _chain_taps(device, float(sigma))
+        levels = _levels_on(device, black, white, gamma)
+        stream = launch_stream(device)
+        r = nt // 2
+        th = chain_tile_rows(r)
         if th:
             rc = lib.pfe_chain_tiled(img.data_ptr(), overlay.data_ptr(),
-                                     out.data_ptr(), h, w, taps.ctypes.data, nt,
-                                     th, params.ctypes.data, lut.ctypes.data,
-                                     stream)
+                                     out.data_ptr(), h, w, taps.data_ptr(), nt,
+                                     th, blur_sums(r), levels.data_ptr(),
+                                     params.ctypes.data, stream)
         else:
-            # the halo does not fit shared memory: K-blur, then the tail
+            # the tile and its tables do not fit shared memory: K-blur,
+            # then the tail
             blurred = gaussian_blur_fused(img, sigma)
             rc = lib.pfe_chain_tail(blurred.data_ptr(), overlay.data_ptr(),
-                                    out.data_ptr(), h, w, params.ctypes.data,
-                                    lut.ctypes.data, stream)
+                                    out.data_ptr(), h, w, levels.data_ptr(),
+                                    params.ctypes.data, stream)
     check(rc, "fused_chain_kernel")
     fused_chain_kernel.launches += 1
     return out

@@ -20,6 +20,7 @@ launches in `<wrapper>.launches`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -33,21 +34,6 @@ from paintfe_tpu_torch.utils.quant import round_u8
 # Tile geometry: TILE_W is csrc/blur_tile.cuh's kTileW.
 TILE_W = 32
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
-
-# K-chain's tile (blur_tile.cuh h_pass_tile / v_pass_pixel)
-MAX_TILE_H = 64
-MIN_TILE_H = 8
-
-
-def tile_rows(r: int, extra_smem: int = 0) -> int:
-    """K-chain's output rows of one tile for blur radius `r`: at most
-    MAX_TILE_H, shrunk so the H-pass sums of the tile and its halo,
-    (th + 2r) rows of TILE_W float4, plus `extra_smem` bytes fit in shared
-    memory.  0 means no tile of MIN_TILE_H rows fits: K-blur and the
-    chain's tail run instead."""
-    th = min(MAX_TILE_H, (MAX_SMEM - extra_smem) // (TILE_W * 16) - 2 * r)
-    return th if th >= MIN_TILE_H else 0
-
 
 # K-blur's staged tile (blur_tile.cuh blur_h_pass / blur_v_pass): TILE_W
 # output columns by blur_tile_rows(r) rows, in strips of blur_sums(r) (the
@@ -78,11 +64,12 @@ def blur_src_pitch(r: int) -> int:
     return (TILE_W + 2 * r) | 1
 
 
-def blur_chunk_rows(th: int, r: int) -> int:
+def blur_chunk_rows(th: int, r: int, reserved: int = 0) -> int:
     """blur_tile.cuh blur_chunk_rows: source rows staged at once, as many
-    as fit beside the sums, spread evenly over the chunks; 0 if none fits."""
-    sums = (th + 2 * r) * TILE_W * 16
-    room = max(MAX_SMEM - sums, 0) // (blur_src_pitch(r) * 4)
+    as fit beside the sums and `reserved` bytes of the kernel's own tables,
+    spread evenly over the chunks; 0 if none fits."""
+    used = (th + 2 * r) * TILE_W * 16 + reserved
+    room = max(MAX_SMEM - used, 0) // (blur_src_pitch(r) * 4)
     if room < 1:
         return 0
     rows = th + 2 * r
@@ -90,19 +77,40 @@ def blur_chunk_rows(th: int, r: int) -> int:
     return -(-rows // chunks)
 
 
-def blur_tile_bytes(th: int, r: int) -> int:
-    """blur_tile.cuh blur_tile_bytes: the tile's shared memory."""
-    return (th + 2 * r) * TILE_W * 16 + blur_chunk_rows(th, r) * blur_src_pitch(r) * 4
+def blur_tile_bytes(th: int, r: int, reserved: int = 0) -> int:
+    """blur_tile.cuh blur_tile_bytes: the tile's shared memory, its
+    kernel's tables included."""
+    return (reserved + (th + 2 * r) * TILE_W * 16
+            + blur_chunk_rows(th, r, reserved) * blur_src_pitch(r) * 4)
 
 
-def blur_tile_rows(r: int) -> int:
+def blur_tile_rows(r: int, reserved: int = 0) -> int:
     """K-blur's output rows of one tile at blur radius `r`:
     BLUR_SHORT_TILE_H up to BLUR_SHORT_MAX_R, then BLUR_TILE_H while
-    BLUR_MIN_CHUNK source rows fit beside the sums, else 0: the split
-    kernels run."""
+    BLUR_MIN_CHUNK source rows fit beside the sums (and `reserved` bytes of
+    tables), else 0: the split kernels run."""
     if r <= BLUR_SHORT_MAX_R:
         return BLUR_SHORT_TILE_H
-    return BLUR_TILE_H if blur_chunk_rows(BLUR_TILE_H, r) >= BLUR_MIN_CHUNK else 0
+    return BLUR_TILE_H if blur_chunk_rows(BLUR_TILE_H, r, reserved) >= BLUR_MIN_CHUNK else 0
+
+
+# K-chain (csrc/fused_chain.cu) runs K-blur's staged tile with its tables
+# ahead of the sums in the same shared memory: three tables of 256 f32 (the
+# unit table, brightness/contrast then levels, soft-light's d), then the
+# 2r + 1 taps padded to four f32.
+CHAIN_TABLES = 3
+
+
+def chain_tables_bytes(r: int) -> int:
+    """csrc/fused_chain.cu chain_tables_bytes at blur radius r."""
+    return (CHAIN_TABLES * 256 + -(-(2 * r + 1) // 4) * 4) * 4
+
+
+def chain_tile_rows(r: int) -> int:
+    """K-chain's output rows of one tile at blur radius r: K-blur's tile
+    with the chain's tables beside it, else 0: K-blur runs (whatever route
+    it takes), then the chain's tail alone."""
+    return blur_tile_rows(r, chain_tables_bytes(r))
 
 
 def gaussian_blur_plain(img: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -124,6 +132,22 @@ def gaussian_blur_plain(img: torch.Tensor, sigma: float) -> torch.Tensor:
         idx = torch.clamp(rows + (k - r), 0, h - 1)
         out = out + acc.index_select(-3, idx) * float(t)
     return round_u8(out)
+
+
+def launch_stream(device: torch.device) -> int:
+    """The raw handle of `device`'s current CUDA stream: what
+    torch.cuda.current_stream(device).cuda_stream gives, without building a
+    Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def device_guard(device: torch.device):
+    """torch.cuda.device(device) where `device` is not the current device,
+    else a context that does nothing: a launch must go to the tensor's
+    card, and switching to the current one costs a call's host time."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_rgba_u8(t: torch.Tensor, name: str, ndims=(3, 4)):
@@ -158,8 +182,8 @@ def gaussian_blur_fused(img: torch.Tensor, sigma: float) -> torch.Tensor:
     if b * h * w == 0:
         return out
     lib = load_library()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with device_guard(img.device):
+        stream = launch_stream(img.device)
         th = blur_tile_rows(r)
         if th:
             rc = lib.pfe_blur_tiled(img.data_ptr(), out.data_ptr(), b, h, w,
@@ -276,8 +300,8 @@ def median_kernel(img: torch.Tensor, r: int) -> torch.Tensor:
     if b * h * w == 0:
         return out
     lib = load_library()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with device_guard(img.device):
+        stream = launch_stream(img.device)
         rc = lib.pfe_median(img.data_ptr(), out.data_ptr(), b, h, w, r,
                             _MEDIAN_ROUTES[median_route(r)], stream)
     check(rc, "median_kernel")
@@ -391,8 +415,8 @@ def composite_stack_kernel(layers, modes, opacities, conceal=None, init=None):
     if h * w == 0:
         return torch.empty_like(first)
     lib = load_library()
-    with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with device_guard(first.device):
+        stream = launch_stream(first.device)
         for s in range(0, len(layers), COMPOSITE_CHUNK):
             e = min(s + COMPOSITE_CHUNK, len(layers))
             n = e - s
@@ -495,9 +519,9 @@ def gaussian_blur_pass(x: torch.Tensor, taps) -> torch.Tensor:
         return out
     lib = load_library()
     seg = pass_segment(w) if pass_route(w, len(taps) // 2) == "staged" else 0
-    with torch.cuda.device(x.device):
+    with device_guard(x.device):
         taps_dev = _taps_on(x.device, taps.tobytes())
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = launch_stream(x.device)
         rc = lib.pfe_blur_pass(x.data_ptr(), taps_dev.data_ptr(), out.data_ptr(),
                                c * h, w, len(taps), seg, stream)
     check(rc, "gaussian_blur_pass")

@@ -23,6 +23,7 @@ import pathlib
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
@@ -40,18 +41,20 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "pfe_blur_tiled": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
     "pfe_blur_split": (_P, _P, _P, _I, _I, _I, _P, _I, _P),
-    "pfe_chain_tiled": (_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P),
+    "pfe_chain_tiled": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P),
     "pfe_chain_tail": (_P, _P, _P, _I, _I, _P, _P, _P),
+    "pfe_chain_div_check": (ctypes.c_float, _P, _P),
     "pfe_median": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "pfe_warp_bilinear": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pfe_warp_bilinear": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "pfe_composite": (_P, _P, _P, _P, _I, _P, _P, _L, _P),
     "pfe_composite_div_check": (_I, ctypes.c_float, _P, _P),
     "pfe_blur_pass": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 # What load_library() did in this process: its seconds (nvcc's build
-# included when the library was not built yet), the library and nvcc's log.
-BUILD_INFO = {"seconds": None, "log": None, "library": None}
+# included when the library was not built yet), the library, nvcc's log and,
+# after a build, each source's compile seconds.
+BUILD_INFO = {"seconds": None, "log": None, "library": None, "sources": {}}
 
 
 def _nvcc() -> str:
@@ -80,12 +83,17 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libpfe_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd):
+    """Run one command; (cmd, stdout, stderr, returncode, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return cmd, proc.stdout, proc.stderr, proc.returncode, time.perf_counter() - t0
+
+
 def _run_all(cmds):
-    """Run the commands at once; [(cmd, stdout, stderr, returncode)]."""
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for cmd in cmds]
-    return [(cmd, *proc.communicate(), proc.returncode)
-            for cmd, proc in zip(cmds, procs)]
+    """Run the commands at once, each timed on its own."""
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        return list(pool.map(_run, cmds))
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,14 +113,16 @@ def load_library() -> ctypes.CDLL:
         # long as the slowest source, not the sum
         results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                             for src, obj in zip(cu, objs)])
-        if all(rc == 0 for *_, rc in results):
+        if all(rc == 0 for *_, rc, _ in results):
             results += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
                                   *map(str, objs)]])
         log.write_text("".join(f"{' '.join(cmd)}\n{out}{err}"
-                               for cmd, out, err, _ in results))
+                               for cmd, out, err, *_ in results))
+        BUILD_INFO["sources"] = {pathlib.Path(cmd[-1]).name: seconds
+                                 for cmd, *_, seconds in results[:len(cu)]}
         for obj in objs:
             obj.unlink(missing_ok=True)
-        for cmd, _, err, rc in results:
+        for cmd, _, err, rc, _ in results:
             if rc != 0:
                 raise RuntimeError(f"nvcc failed (rc {rc}) on {cmd[-1]}:\n"
                                    f"{err[-4000:]}")

@@ -104,20 +104,47 @@ def test_wrapper_refuses_non_cpu_non_cuda_and_bad_tensors():
             torch.zeros((4, 4, 4), dtype=torch.uint8, device="meta"), 2.0)
 
 
-@pytest.mark.parametrize("r,th", [(0, 64), (6, 64), (180, 64), (200, 54),
-                                  (223, 8), (224, 0), (1000, 0)])
-def test_chain_tile_rows_fit_shared_memory(r, th):
-    """K-chain's tile: th rows of H sums plus the 2r halo, and its levels
-    table, in one block's shared memory."""
-    def smem(rows):  # csrc/blur_tile.cuh tile_smem_bytes
-        return (rows + 2 * r) * tkernels.TILE_W * 16
+def _chain_limit():
+    return next(r for r in range(1000) if tkernels.chain_tile_rows(r) == 0) - 1
 
-    assert tkernels.tile_rows(r) == th
-    if th:
-        assert smem(th) <= tkernels.MAX_SMEM
-        assert 2 * r + 1 <= 512  # the kernels' constant tap table
-    else:
-        assert smem(tkernels.MIN_TILE_H) > tkernels.MAX_SMEM
+
+@pytest.mark.parametrize("radius", ["0", "4", "5", "6", "limit", "limit+1", "180", "200",
+                                    "223", "224", "1000"])
+def test_chain_tile_and_tables_fit_shared_memory(radius):
+    """K-chain's staged tile: K-blur's tile geometry with the chain's
+    tables (three of 256 f32, and the taps padded to four f32) in the same
+    block's shared memory.  Up to the limit the tile
+    runs, with K-blur's rows and sums a thread and at least BLUR_MIN_CHUNK
+    staged rows; past it K-blur runs and then the tail alone."""
+    limit = _chain_limit()
+    assert 75 <= limit < _split_limit()  # the tables cost K-chain at most a few radii
+    r = limit + 1 if radius == "limit+1" else limit if radius == "limit" else int(radius)
+    tables = tkernels.chain_tables_bytes(r)
+    assert tables == 3 * 256 * 4 + 4 * (-(-(2 * r + 1) // 4) * 4)
+    assert tables % 16 == 0  # the float4 sums after the tables stay aligned
+    th = tkernels.chain_tile_rows(r)
+    if r > limit:
+        assert th == 0
+        assert (r <= tkernels.BLUR_SHORT_MAX_R
+                or tkernels.blur_chunk_rows(tkernels.BLUR_TILE_H, r, tables)
+                < tkernels.BLUR_MIN_CHUNK)
+        return
+    assert th == tkernels.blur_tile_rows(r)
+    assert th % tkernels.blur_sums(r) == 0
+    chunk = tkernels.blur_chunk_rows(th, r, tables)
+    assert tkernels.BLUR_MIN_CHUNK <= chunk <= th + 2 * r
+    nbytes = tkernels.blur_tile_bytes(th, r, tables)
+    sums = (th + 2 * r) * tkernels.TILE_W * 16
+    assert nbytes == tables + sums + chunk * tkernels.blur_src_pitch(r) * 4
+    assert nbytes <= tkernels.MAX_SMEM == 232448
+    # one row more in a chunk would not fit, unless every row is staged at once
+    assert (chunk == th + 2 * r
+            or nbytes + tkernels.blur_src_pitch(r) * 4 * -(-(th + 2 * r) // chunk)
+            > tkernels.MAX_SMEM)
+    if r <= tkernels.BLUR_SHORT_MAX_R:  # four blocks an SM, as K-blur's short tile
+        assert 4 * (nbytes + 1024) <= 233472
+    assert tkernels.blur_tile_bytes(th, r) == nbytes - tables + (
+        tkernels.blur_chunk_rows(th, r) - chunk) * tkernels.blur_src_pitch(r) * 4
 
 
 def _split_limit():
@@ -202,8 +229,104 @@ def test_register_blocked_sums_keep_the_tap_order(sigma, q):
 
 
 def test_u8_to_f32_by_exponent_bits_is_exact():
-    """blur_tile.cuh u8x4_to_f32: the bits 0x4B0000bb are 2^23 + bb as an
+    """u8_pixel.cuh u8x4_to_f32: the bits 0x4B0000bb are 2^23 + bb as an
     f32, and subtracting 2^23 leaves bb exactly."""
     b = np.arange(256, dtype=np.uint32)
     f = (np.uint32(0x4B000000) | b).view(np.float32) - np.float32(8388608.0)
     np.testing.assert_array_equal(f, b.astype(np.float32))
+
+
+# numpy mirrors of csrc/u8_pixel.cuh and csrc/unpremultiply.cuh, which
+# K-blur, K-chain, K-warp and K-composite share
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm(x, y, s): byte i of the result is byte s's
+    nibble i (0-7) of the eight bytes y:x."""
+    x, y = np.asarray(x, np.uint64), np.asarray(y, np.uint64)
+    both = (y << np.uint64(32)) | x
+    out = np.zeros(np.broadcast(x, y).shape, np.uint64)
+    for i in range(4):
+        sel = np.uint64((s >> (4 * i)) & 7)
+        out |= ((both >> (np.uint64(8) * sel)) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _add_directed(v, mode):
+    """f32 v + 2^23 rounded down ("rd", __fadd_rd) or toward zero ("rz",
+    __fadd_rz), as f32 bits: the exact sum in f64, then the nearest f32
+    stepped one ulp toward the direction where it overshoots."""
+    exact = v.astype(np.float64) + 2.0 ** 23
+    near = exact.astype(np.float32)
+    over = near.astype(np.float64) > exact if mode == "rd" else (
+        np.abs(near.astype(np.float64)) > np.abs(exact))
+    near = np.where(over, np.nextafter(near, np.float32(0) if mode == "rz" else -np.inf,
+                                       dtype=np.float32), near)
+    return near.view(np.uint32)
+
+
+def _u8x4_to_f32(p):
+    return np.stack([_byte_perm(p, 0x4B000000, sel).view(np.float32) - np.float32(2.0 ** 23)
+                     for sel in (0x7540, 0x7541, 0x7542, 0x7543)], -1)
+
+
+def _round_byte(x):
+    f32 = np.float32
+    return _add_directed(np.fmin(np.fmax(x + f32(0.5), f32(0)), f32(255)), "rd")
+
+
+def _pack_low(r, g, b, a):
+    return _byte_perm(_byte_perm(r, g, 0x0040), _byte_perm(b, a, 0x0040), 0x5410)
+
+
+@pytest.mark.parametrize("position", range(4))
+def test_u8x4_to_f32_mirror_takes_each_byte_of_every_value(position):
+    """u8x4_to_f32 (__byte_perm with 2^23, then a subtraction): every one of
+    the 256 byte values at each position of a word, beside random bytes in
+    the others, comes back as its exact f32."""
+    rng = np.random.default_rng(position)
+    b = np.arange(256, dtype=np.uint32)
+    words = rng.integers(0, 2 ** 32, 256, dtype=np.uint64).astype(np.uint32)
+    words = (words & ~np.uint32(0xFF << (8 * position))) | (b << np.uint32(8 * position))
+    got = _u8x4_to_f32(words)
+    want = np.stack([(words >> np.uint32(8 * c)) & np.uint32(0xFF) for c in range(4)], -1)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    assert got.dtype == np.float32
+
+
+def test_round_byte_mirror_is_floor_half_up_clipped():
+    """round_byte on every f32 in [-1, 257] on a 1/64 grid, and on NaN and
+    the infinities: the word is 2^23 + floor(v + 0.5) clipped to [0, 255]
+    (0 for NaN), so its low byte is the rounded byte and its f32 value less
+    2^23 is that byte exactly."""
+    v = (np.arange(-64, 257 * 64 + 1) / 64).astype(np.float32)
+    v = np.concatenate([v, np.float32([np.nan, np.inf, -np.inf])])
+    want = np.clip(np.floor(v.astype(np.float64) + 0.5), 0, 255)
+    want = np.where(np.isnan(v), 0, want).astype(np.uint32)
+    bits = _round_byte(v)
+    np.testing.assert_array_equal(bits, np.uint32(0x4B000000) + want)
+    np.testing.assert_array_equal(bits.view(np.float32) - np.float32(2.0 ** 23),
+                                  want.astype(np.float32))
+    # round_pack: the four low bytes in RGBA order
+    rng = np.random.default_rng(3)
+    ch = [rng.choice(v, 4096) for _ in range(4)]
+    packed = _pack_low(*[_round_byte(c) for c in ch])
+    want4 = [np.where(np.isnan(c), 0, np.clip(np.floor(c.astype(np.float64) + 0.5), 0, 255))
+             for c in ch]
+    np.testing.assert_array_equal(
+        packed, sum(w.astype(np.uint32) << np.uint32(8 * i) for i, w in enumerate(want4)))
+
+
+def test_truncating_cast_mirror_is_floor():
+    """unpremultiply.cuh trunc_bits (an add of 2^23 rounded toward zero) on
+    every f32 in [0, 256) on a 1/64 grid and the values just below each
+    integer: the low byte is floor(v), and the same word comes from the
+    f32 value of the byte (the chain's round trip through byte_value)."""
+    v = (np.arange(0, 256 * 64) / 64).astype(np.float32)
+    below = np.nextafter(np.arange(1, 256, dtype=np.float32), np.float32(0))
+    v = np.concatenate([v, below])
+    bits = _add_directed(v, "rz")
+    floor = np.floor(v.astype(np.float64)).astype(np.uint32)
+    np.testing.assert_array_equal(bits, np.uint32(0x4B000000) + floor)
+    np.testing.assert_array_equal(bits.view(np.float32) - np.float32(2.0 ** 23),
+                                  floor.astype(np.float32))

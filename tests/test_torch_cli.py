@@ -279,6 +279,31 @@ def test_layered_profile_times_the_flatten(inputs, capsys):
         assert stage in out
 
 
+def _stage_names(out):
+    """The stage names of --profile's report lines ("  load: 1.2 ms")."""
+    import re
+
+    return re.findall(r"^  (\w+): [0-9.]+ ms$", out, flags=re.M)
+
+
+@pytest.mark.parametrize("source,fmt", [("v3doc.pfe", "pfe"), ("v1doc.pfe", "pfe"),
+                                        ("v3doc.pfe", "png"), ("in0.png", "pfe")])
+def test_profile_stages_match_the_jax_cli(inputs, capsys, source, fmt):
+    """--profile prints the stages the JAX CLI prints, in its order: -f pfe
+    times no stage around save_pfe (no "encode"), a flattened document
+    times flatten and encode."""
+    _write_documents(inputs)
+    common = ["-i", str(inputs / source), "-s", str(inputs / "fx.rhai"), "-f", fmt,
+              "--profile"]
+    assert jcli.main(common + ["--output-dir", str(inputs / "jax")]) == 0
+    want = _stage_names(capsys.readouterr().out)
+    assert tcli.main(common + ["--output-dir", str(inputs / "port"), "--device", "cpu"]) == 0
+    got = _stage_names(capsys.readouterr().out)
+    assert got == want
+    assert ("encode" in got) == (fmt != "pfe")
+    assert got[:2] == ["load", "script"]
+
+
 @pytest.mark.parametrize("shard", [False, True])
 def test_text_layers_and_pdn_report_not_yet_ported(inputs, capsys, shard):
     from paintfe_tpu.core import canvas as jcanvas

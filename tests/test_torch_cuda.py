@@ -436,3 +436,85 @@ def test_flatten_with_adjustment_and_empty_tiles_on_the_card_equals_the_cpu(dev,
     doc.layers[1].pixels = px
     updated = composite_dirty_rect(doc, cache, full, (50, 30, 139, 119))
     assert np.array_equal(updated.cpu().numpy(), doc.composite(device="cpu"))
+
+
+def _chain_limit_sigmas():
+    """Sigmas whose radius takes each of K-chain's tile widths (4 sums a
+    thread to BLUR_SHORT_MAX_R, then 8), its last tiled radius and the one
+    after it (K-blur's tile, then the tail), and K-blur's last tiled radius
+    and its first split one."""
+    radii = range(300)
+    short = kernels.BLUR_SHORT_MAX_R
+    chain = next(r for r in radii if kernels.chain_tile_rows(r) == 0)
+    split = next(r for r in radii if kernels.blur_tile_rows(r) == 0)
+    return [(r - 0.5) / 3 for r in (1, short, short + 1, chain - 1, chain, split - 1, split)]
+
+
+# opacities on both sides of div3's shared reciprocal (2^-20) and the ends
+@pytest.mark.parametrize("opacity", [0.6, 2.0 ** -20, 2.0 ** -21, 1.0])
+@pytest.mark.parametrize("sigma", _chain_limit_sigmas())
+def test_chain_kernel_at_tile_limits_and_opacities(dev, sigma, opacity):
+    img, ov = _img((70, 45), 12, dev), _img((70, 45), 13, dev)
+    ov[:6, :, 3] = 0
+    ov[-3:, :, 3] = 255
+    img[20:23, :, 3] = 0
+    before = fused_chain_kernel.launches
+    out = fused_chain_kernel(img, ov, sigma=sigma, blend_opacity=opacity)
+    assert fused_chain_kernel.launches == before + 1
+    assert torch.equal(out, fused_chain(img, ov, sigma=sigma, blend_opacity=opacity))
+
+
+@pytest.mark.parametrize("opacity", [0.6, 2.0 ** -20, 2.0 ** -21, 1.0])
+def test_chain_quotients_equal_correctly_rounded_divides(dev, opacity):
+    """pfe_chain_div_check: over every u8 (base, base alpha, overlay,
+    overlay alpha), no quotient of the chain's soft-light tail differs from
+    __fdiv_rn, on either side of the shared reciprocal's opacity limit."""
+    import ctypes
+
+    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    check(load_library().pfe_chain_div_check(ctypes.c_float(opacity), counts.data_ptr(),
+                                             torch.cuda.current_stream().cuda_stream),
+          "pfe_chain_div_check")
+    differ, compared = counts.tolist()
+    assert differ == 0 and compared > 3 * 255 * 2 ** 23
+
+
+def _field_offset(t, offset):
+    """A contiguous copy of the f32 tensor `t` starting `offset` bytes (a
+    multiple of 4) past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=torch.float32, device=t.device)
+    start = (-flat.data_ptr()) % 16 // 4 + offset // 4
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# K-warp's paths (ops/warp_kernel.warp_split): W a multiple of 4 with
+# aligned fields (vector), W = 511 and 3838 (scalar with a tail of 3 and
+# 2), 3841 (a tail of 1), a field 4 bytes off a 16-byte boundary (scalar),
+# and a batch sharing one field
+@pytest.mark.parametrize("mode", ["zero", "clamp"])
+@pytest.mark.parametrize("w,layout", [(512, "aligned"), (511, "aligned"), (3838, "aligned"),
+                                      (3841, "aligned"), (512, "sx+4"), (512, "sy+8"),
+                                      (3840, "batch")])
+def test_warp_kernel_vector_scalar_and_tail_paths(dev, w, layout, mode):
+    h = 9
+    batch = (3,) if layout == "batch" else ()
+    src = _img(batch + (h + 5, w - 3), 14, dev)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    g = torch.Generator().manual_seed(5)
+    sx = (xx * 0.997 - 1.5 + torch.rand((h, w), generator=g) * 3).to(dev)
+    sy = (yy * 1.1 - 2.0 + torch.rand((h, w), generator=g) * 2).to(dev)
+    if layout == "sx+4":
+        sx = _field_offset(sx, 4)
+    if layout == "sy+8":
+        sy = _field_offset(sy, 8)
+    before = warp_kernel.gather_bilinear_u8.launches
+    out = warp_kernel.gather_bilinear_u8(src, sx, sy, mode)
+    assert warp_kernel.gather_bilinear_u8.launches == before + 1
+    assert torch.equal(out, warp_kernel.gather_bilinear_plain(src, sx, sy, mode))
+    path = warp_kernel.warp_split(w, sx.data_ptr(), sy.data_ptr(), out.data_ptr())[0]
+    assert path == ("vector" if layout in ("aligned", "batch") and w % 4 == 0 else "scalar")

@@ -371,3 +371,47 @@ def test_layer_cache_revalidates_by_identity_and_evicts_dead_layers():
     del layer
     gc.collect()
     assert cache.resident_count() == 0
+
+
+@pytest.mark.parametrize("slot", ["pixels", "mask"])
+def test_layer_cache_generation_invalidate_and_clear_match_jax(slot):
+    """DeviceLayerCache's whole interface against the JAX package's on one
+    sequence of edits: get with and without a generation counter (a changed
+    counter uploads again even when the host array is the same object; a
+    get without one trusts the array's identity), a replaced array,
+    invalidate (both slots of one layer) and clear.  Each step records
+    whether the cache served the entry it held, and what it serves."""
+    def run(module, layer_cls):
+        cache = module.DeviceLayerCache("cpu") if module is tdevice else module.DeviceLayerCache()
+        a = layer_cls.new("a", 8, 4, (1, 2, 3, 4))
+        b = layer_cls.new("b", 8, 4, (9, 9, 9, 9))
+        for layer in (a, b):
+            layer.mask = np.full((4, 8), 7, np.uint8)
+        steps = [("get", a, None), ("get", a, None), ("get", a, 1), ("get", a, 1),
+                 ("get", a, 2), ("get", a, None), ("get", a, 2), ("get", b, 5),
+                 ("replace", a, None), ("get", a, 2), ("get", a, 2), ("invalidate", a, None),
+                 ("get", a, 2), ("get", b, 5), ("clear", None, None), ("get", b, 5),
+                 ("get", a, None)]
+        held, served = [], []
+        for op, layer, gen in steps:
+            if op == "replace":
+                setattr(layer, slot, getattr(layer, slot).copy())
+            elif op == "invalidate":
+                cache.invalidate(layer)
+            elif op == "clear":
+                cache.clear()
+            else:
+                before = cache._cache.get((id(layer), slot))
+                out = cache.get(layer, gen, slot=slot)
+                held.append(before is not None and out is before[2])
+                served.append(np.asarray(out).copy())
+        return held, served, cache.resident_count(), cache.memory_bytes()
+
+    held, served, resident, nbytes = run(tdevice, tcanvas.Layer)
+    jheld, jserved, jresident, jnbytes = run(jdevice, jcanvas.Layer)
+    assert held == jheld
+    assert held == [False, True, False, True, False, True, True, False, False, True,
+                    False, True, False, False]
+    assert (resident, nbytes) == (jresident, jnbytes)
+    for got, want in zip(served, jserved):
+        np.testing.assert_array_equal(got, want)

@@ -151,3 +151,48 @@ def test_warp_displacement_matches_jax(src_shape):
     out = ttfm.warp_displacement(torch.from_numpy(src), torch.from_numpy(field))
     np.testing.assert_array_equal(out.numpy(), ref)
     np.testing.assert_array_equal(ttfm.warp_displacement(src, field).numpy(), ref)
+
+
+@pytest.mark.parametrize("w,offset,want", [
+    (3840, 0, ("vector", 960, 0)),   # 4K, every address aligned
+    (512, 0, ("vector", 128, 0)),
+    (511, 0, ("scalar", 127, 3)),    # a tail group of 3 pixels a row
+    (3838, 0, ("scalar", 959, 2)),
+    (3841, 0, ("scalar", 960, 1)),
+    (3840, 4, ("scalar", 960, 0)),   # a field 4 bytes off a 16-byte boundary
+    (3840, 8, ("scalar", 960, 0)),
+    (4, 0, ("vector", 1, 0)),
+    (3, 0, ("scalar", 0, 3)),        # one tail group only
+    (1, 12, ("scalar", 0, 1)),
+])
+def test_warp_split_picks_vector_scalar_and_tail(w, offset, want):
+    """K-warp's paths (csrc/warp_bilinear.cu, decided by the wrapper): the
+    16-byte path only where the row width is a multiple of WARP_PX and both
+    fields and the output are 16-byte aligned; otherwise 4-byte accesses,
+    with a tail group of w % WARP_PX pixels.  An offset moves one field."""
+    assert twarp.WARP_PX == 4
+    base = 0x7F0000001000
+    assert twarp.warp_split(w, base + offset, base + 0x100000, base + 0x200000) == want
+    assert twarp.warp_split(w, base, base + 0x100000 + offset, base + 0x200000) == want
+    path, groups, tail = want
+    assert groups * twarp.WARP_PX + tail == w
+
+
+def test_fraction_from_the_floor_equals_the_converted_integers():
+    """csrc/warp_bilinear.cu takes fx = x - clip(floor(x), -2^31, 2^31)
+    where the first design converted floor(x) to int32 and back (cvt.rzi
+    saturates; a NaN converts to 0): the same fraction for every f32
+    coordinate, in range, past +-2^31, infinite or NaN."""
+    rng = np.random.default_rng(4)
+    x = np.concatenate([
+        (rng.random(20000) * 1e4 - 5e3), rng.standard_normal(2000) * 3e9,
+        np.arange(-70, 70) / 8, [2.0 ** 31, -2.0 ** 31, 2.0 ** 31 - 128, 3e38, -3e38,
+                                 np.inf, -np.inf, np.nan, 0.0, -0.0]]).astype(np.float32)
+    fl = np.floor(x)
+    converted = np.where(np.isnan(fl), 0, np.clip(fl, -2.0 ** 31, 2.0 ** 31 - 1)).astype(
+        np.float64)
+    old = (x.astype(np.float64) - converted.astype(np.float32).astype(np.float64)).astype(
+        np.float32)
+    new = x - np.fmin(np.fmax(fl, np.float32(-2.0 ** 31)), np.float32(2.0 ** 31))
+    np.testing.assert_array_equal(np.isnan(new), np.isnan(old))
+    np.testing.assert_array_equal(new[~np.isnan(new)], old[~np.isnan(old)])
