@@ -25,10 +25,13 @@ It builds the port's CUDA kernels from csrc/, then:
      and K-pass (csrc/blur_pass.cu) against gaussian_blur_pass_plain, at
      widths around each limit of its groups and segments and below its
      radius, on both of its routes;
-  2. drives three main paths and one entry call, each with every kernel
+  2. holds each of the 13 effect ops of the script API (EFFECT_OPS), and
+     resize (four filters) and resize_canvas, at 1920x1080 on the card
+     against the same op on the CPU, byte for byte;
+  3. drives four main paths and one entry call, each with every kernel
      launch count set to 0 just before it and read just after:
-     - the headline path: the serial CLI (three 3840x2160 PNGs, --device
-       cuda) and the --shard CLI (six 3840x2160 and two 1920x1080 PNGs,
+     - the headline path: the serial CLI (two 3840x2160 PNGs, --device
+       cuda) and the --shard CLI (four 3840x2160 and two 1920x1080 PNGs,
        two shape buckets) on the headline script, then the headline 4K
        chain frame;
      - the spatial-effects path: the same two CLI runs on a script that
@@ -42,6 +45,13 @@ It builds the port's CUDA kernels from csrc/, then:
        layer and replays two canvas ops on the others; the active-tile mask
        built on the card must equal the host definition, and a preview
        overlay composited on the card the CPU flatten;
+     - the effects path: the serial CLI (two 3840x2160 PNGs) and --shard
+       (three 3840x2160 and two 1920x1080) on a script calling each of the
+       13 effect ops once (K-blur twice, under sharpen and glow, and K-warp
+       once, under twist, per image and per bucket), printing the --shard
+       run's peak device memory; then one 3840x2160 six-layer document
+       through resize_image and resize_canvas (replayed on the other
+       layers) and the flatten on K-composite;
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -50,7 +60,7 @@ It builds the port's CUDA kernels from csrc/, then:
      kernel must have launched exactly as often as the path needs (a
      --shard bucket that fell back to the per-image path would launch its
      kernels once per image; K-composite launches once per raster run);
-  3. times K-median at several radii, K-blur at several sigmas (one frame
+  4. times K-median at several radii, K-blur at several sigmas (one frame
      and a batch), K-chain, K-composite over stack depths, conceal masks
      and mode mixes, K-pass at several sigmas along both axes, and K-warp
      in both modes on a smooth and a random field (one frame and a batch,
@@ -59,7 +69,8 @@ It builds the port's CUDA kernels from csrc/, then:
      3840x2160 and beside one PyTorch call computing the same function
      where there is one, and each route beside its neighbour at the radii
      where ops/kernels.py hands over: CUDA events around one call, median
-     of 15 samples after warm-up.
+     of 15 samples after warm-up; then each effect op at 3840x2160 (median
+     of 7).
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}.  Any failed
@@ -67,7 +78,7 @@ check exits non-zero before that line.  It imports nothing of JAX.
 
     python3 chip_smoke.py --cases
 
-runs only the timed cases of step 3 and the flatten of one 3840x2160
+runs only the timed cases of step 4 and the flatten of one 3840x2160
 document, and prints them as one JSON line: run from two checkouts in
 turns, it compares two versions of the package on one card.
 """
@@ -92,13 +103,33 @@ SPATIAL = ("apply_blur(2.0); apply_median(2); apply_bulge(0.5); "
 # rotate_canvas_180 and flip_canvas_horizontal queue canvas ops that the CLI
 # replays on the other layers
 LAYERED = "apply_blur(2.0); rotate_canvas_180(); flip_canvas_horizontal();"
+# the effects path: each of the 13 effect ops of the script API once, the two
+# that binarize (ink, halftone) last; K-blur under sharpen and glow, K-warp
+# under twist
+EFFECTS = ("apply_box_blur(2); apply_motion_blur(30.0, 4.0); apply_sharpen(1.2); "
+           "apply_reduce_noise(25.0); apply_noise(20.0, true); apply_pixelate(3); "
+           "apply_crystallize(6); apply_twist(45.0); apply_glow(3.0, 0.6); "
+           "apply_vignette(0.5, 0.9); apply_oil_painting(3); apply_ink(40.0, 20.0); "
+           "apply_halftone(6.0);")
+EFFECT_OPS = [("apply_box_blur", (2.0,)), ("apply_motion_blur", (30.0, 4.0)),
+              ("apply_sharpen", (1.2,)), ("apply_reduce_noise", (25.0,)),
+              ("apply_noise", (20.0, True)), ("apply_pixelate", (3,)),
+              ("apply_crystallize", (6.0,)), ("apply_twist", (45.0,)),
+              ("apply_glow", (3.0, 0.6)), ("apply_vignette", (0.5, 0.9)),
+              ("apply_oil_painting", (3,)), ("apply_ink", (40.0, 20.0)),
+              ("apply_halftone", (6.0,))]
+# a layered document resized: resize_image on the active layer in the
+# script, both canvas ops replayed on the others, then the flatten
+DOC_RESIZE = 'resize_image(1920, 1080, "lanczos3"); resize_canvas(2000, 1200, "center");'
 SHAPES = [(37, 53), (257, 511), UHD]
 OPACITIES = (0.0, 0.37, 1.0, 1.5)
 TIMED_RUNS = 15
 # 3840x2160 PNGs of the headline and spatial paths: serial, and --shard
-# (beside two 1920x1080 ones)
-SERIAL_UHD = 3
-SHARD_UHD = 6
+# (beside two 1920x1080 ones); the effects path's
+SERIAL_UHD = 2
+SHARD_UHD = 4
+EFFECTS_SERIAL_UHD = 2
+EFFECTS_SHARD_UHD = 3
 # K-median's timed radii at 3840x2160 (r = 40 and 110: its staged and
 # global counting routes), and K-blur's timed sigmas, one frame and a batch
 # of BATCH frames (sigma 60, r = 180: the split route)
@@ -652,6 +683,31 @@ def _plain_spatial(img):
     return _levels_device(x, 10.0, 245.0, 1.1)
 
 
+@contextlib.contextmanager
+def _plain_kernels():
+    """Route K-blur's and K-warp's wrappers through their plain versions
+    (the ops import them from their modules at each call)."""
+    import paintfe_tpu_torch.ops.kernels as kernels
+    import paintfe_tpu_torch.ops.warp_kernel as warp_kernel
+
+    blur, warp = kernels.gaussian_blur_fused, warp_kernel.gather_bilinear_u8
+    kernels.gaussian_blur_fused = kernels.gaussian_blur_plain
+    warp_kernel.gather_bilinear_u8 = warp_kernel.gather_bilinear_plain
+    try:
+        yield
+    finally:
+        kernels.gaussian_blur_fused, warp_kernel.gather_bilinear_u8 = blur, warp
+
+
+def _plain_effects(img):
+    """The effects script's steps on the card, gaussian_blur_plain and
+    gather_bilinear_plain standing in for K-blur and K-warp."""
+    from paintfe_tpu_torch.parallel.pipeline import compile_pipeline, trace_script
+
+    with _plain_kernels():
+        return compile_pipeline(trace_script(EFFECTS))(img)
+
+
 def _write_inputs(d, specs, seed):
     import numpy as np
     from PIL import Image
@@ -666,11 +722,14 @@ def _write_inputs(d, specs, seed):
     return arrays
 
 
-def _drive_cli(dev, tmp, tag, script, plain_steps, script_kernels, seed):
-    """The serial CLI on SERIAL_UHD 3840x2160 PNGs (with its per-stage
-    times), then --shard on SHARD_UHD 3840x2160 and two 1920x1080 PNGs (two
-    shape buckets); checks exit codes, launch counts per image and per bucket,
-    and every output against `plain_steps` on the card."""
+def _drive_cli(dev, tmp, tag, script, plain_steps, per_image, seed,
+               n_serial=SERIAL_UHD, n_shard=SHARD_UHD):
+    """The serial CLI on n_serial 3840x2160 PNGs (with its per-stage times),
+    then --shard on n_shard 3840x2160 and two 1920x1080 PNGs (two shape
+    buckets); checks exit codes, launch counts (`per_image`: each kernel's
+    launches for one image, so per serial image and per --shard bucket), the
+    --shard run's peak device memory, and every output against
+    `plain_steps` on the card."""
     import numpy as np
     import torch
     from PIL import Image
@@ -683,8 +742,8 @@ def _drive_cli(dev, tmp, tag, script, plain_steps, script_kernels, seed):
     (root / "shard").mkdir()
     (root / "fx.rhai").write_text(script)
     serial = _write_inputs(root / "serial",
-                           [(f"s{k}.png", UHD) for k in range(SERIAL_UHD)], seed)
-    shard = _write_inputs(root / "shard", [(f"u{k}.png", UHD) for k in range(SHARD_UHD)]
+                           [(f"s{k}.png", UHD) for k in range(n_serial)], seed)
+    shard = _write_inputs(root / "shard", [(f"u{k}.png", UHD) for k in range(n_shard)]
                           + [(f"f{k}.png", FHD) for k in range(2)], seed + 1)
     argv = ["-s", str(root / "fx.rhai"), "-f", "png", "--device", "cuda"]
     c0 = _counts()
@@ -694,24 +753,28 @@ def _drive_cli(dev, tmp, tag, script, plain_steps, script_kernels, seed):
                           str(root / "out_serial"), "--profile", *argv])
     t1 = time.perf_counter()
     c1 = _counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     rc_shard = cli.main(["-i", str(root / "shard" / "*.png"), "--output-dir",
                          str(root / "out_shard"), "--shard", *argv])
     t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**20
     c2 = _counts()
-    print(f"  {tag}: serial CLI rc {rc_serial} ({t1 - t0:.3f} s, {SERIAL_UHD} x 4K), "
-          f"--shard CLI rc {rc_shard} ({t2 - t1:.3f} s, {SHARD_UHD} x 4K + 2 x 1080p)")
+    print(f"  {tag}: serial CLI rc {rc_serial} ({t1 - t0:.3f} s, {n_serial} x 4K), "
+          f"--shard CLI rc {rc_shard} ({t2 - t1:.3f} s, {n_shard} x 4K + 2 x 1080p, "
+          f"peak device memory {peak:.1f} MiB)")
     if rc_serial != 0 or rc_shard != 0:
         raise CheckFailed(f"{tag}: CLI exit codes: serial {rc_serial}, "
                           f"shard {rc_shard}")
-    for name in script_kernels:
-        n_serial, n_shard = c1[name] - c0[name], c2[name] - c1[name]
-        if n_serial != SERIAL_UHD:
+    for name, k in per_image.items():
+        n_serial_got, n_shard_got = c1[name] - c0[name], c2[name] - c1[name]
+        if n_serial_got != k * n_serial:
             raise CheckFailed(f"{tag}: the serial CLI launched {name} "
-                              f"{n_serial} times for {SERIAL_UHD} images, "
-                              f"expected {SERIAL_UHD}")
-        if n_shard != 2:
-            raise CheckFailed(f"{tag}: --shard launched {name} {n_shard} times "
-                              "for 2 shape buckets, expected 2: a bucket did "
+                              f"{n_serial_got} times for {n_serial} images, "
+                              f"expected {k * n_serial}")
+        if n_shard_got != k * 2:
+            raise CheckFailed(f"{tag}: --shard launched {name} {n_shard_got} times "
+                              f"for 2 shape buckets, expected {k * 2}: a bucket did "
                               "not run as one batched launch")
 
     def expect(arr):
@@ -728,7 +791,8 @@ def _drive_cli(dev, tmp, tag, script, plain_steps, script_kernels, seed):
             raise CheckFailed(f"{tag}: --shard CLI output {name} differs from "
                               "the plain steps")
     print(f"  ok  {tag}: CLI outputs (serial {len(serial)}, --shard {len(shard)}) "
-          "equal the plain steps; one launch per serial image and per --shard bucket")
+          f"equal the plain steps; launches per serial image and per --shard bucket "
+          f"{per_image}")
 
 
 def _check_launched(tag, counts, names):
@@ -739,8 +803,9 @@ def _check_launched(tag, counts, names):
 
 
 def drive_main_paths(dev, gen, tmp):
-    """The main paths and K-pass's entry call, each with launch counts
-    from 0.  Returns each phase's launch counts, by phase."""
+    """The main paths (headline, spatial, layered, effects) and K-pass's
+    entry call, each with launch counts from 0.  Returns each phase's launch
+    counts, by phase."""
     import torch
 
     from paintfe_tpu_torch.ops.fused_chain import fused_chain, fused_chain_kernel
@@ -750,7 +815,7 @@ def drive_main_paths(dev, gen, tmp):
     ov = _overlay(gen, UHD, dev)
     _reset_counts()
     _drive_cli(dev, tmp, "headline", HEADLINE, _plain_headline,
-               ("gaussian_blur_fused",), 1)
+               {"gaussian_blur_fused": 1}, 1)
     head = fused_chain_kernel(img, ov)
     torch.cuda.synchronize()
     headline = _counts()
@@ -762,7 +827,7 @@ def drive_main_paths(dev, gen, tmp):
 
     _reset_counts()
     _drive_cli(dev, tmp, "spatial", SPATIAL, _plain_spatial,
-               ("gaussian_blur_fused", "median_kernel", "gather_bilinear_u8"), 3)
+               {"gaussian_blur_fused": 1, "median_kernel": 1, "gather_bilinear_u8": 1}, 3)
     torch.cuda.synchronize()
     spatial = _counts()
     _check_launched("spatial", spatial,
@@ -770,9 +835,20 @@ def drive_main_paths(dev, gen, tmp):
 
     _reset_counts()
     layered = drive_layered_path(dev, tmp)
+
+    _reset_counts()
+    _drive_cli(dev, tmp, "effects", EFFECTS, _plain_effects,
+               {"gaussian_blur_fused": 2, "gather_bilinear_u8": 1}, 7,
+               EFFECTS_SERIAL_UHD, EFFECTS_SHARD_UHD)
+    drive_resized_document(dev, tmp)
+    torch.cuda.synchronize()
+    effects = _counts()
+    _check_launched("effects", effects, ("gaussian_blur_fused", "gather_bilinear_u8",
+                                         "composite_stack_kernel"))
+
     entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
     return {"headline": headline, "spatial": spatial, "layered": layered,
-            "gaussian_blur_pallas entry call": entry}
+            "effects": effects, "gaussian_blur_pallas entry call": entry}
 
 
 def drive_blur_pass_entry(dev, png):
@@ -992,6 +1068,107 @@ def drive_layered_path(dev, tmp):
           "the card equals the CPU flatten")
     profile_flatten(dev, doc)
     return launches
+
+
+def _plain_resized(path):
+    """DOC_RESIZE's steps on one document: both resizes on every layer (the
+    active one in the script, the others replayed), tiles of the active
+    layer canonicalized.  Returns the document before the flatten."""
+    from paintfe_tpu_torch.core.canvas import canonicalize_tiles
+    from paintfe_tpu_torch.io.pfe import load_pfe
+    from paintfe_tpu_torch.ops import transform as tfm
+
+    doc = load_pfe(str(path))
+    for k, layer in enumerate(doc.layers):
+        px = tfm.resize_canvas(tfm.resize(layer.pixels, 1920, 1080, "lanczos3"),
+                               2000, 1200, (1, 1))
+        layer.pixels = canonicalize_tiles(px) if k == doc.active_layer_index else px
+    doc.width, doc.height = 2000, 1200
+    return doc
+
+
+def drive_resized_document(dev, tmp):
+    """One serial CLI run of a six-layer 3840x2160 V3 document through
+    DOC_RESIZE: the resize kinds of canvas-op replay, then the flatten on
+    K-composite (two raster runs: exactly two launches, no K-blur), its PNG
+    equal to the plain route's flatten on the card."""
+    import numpy as np
+    from PIL import Image
+
+    from paintfe_tpu_torch import cli
+    from paintfe_tpu_torch.io.pfe import save_pfe
+
+    root = tmp / "resized"
+    (root / "in").mkdir(parents=True)
+    (root / "fx.rhai").write_text(DOC_RESIZE)
+    save_pfe(_layered_document(np.random.default_rng(8), *UHD), str(root / "in" / "r0.pfe"))
+    c0 = _counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", str(root / "in" / "r0.pfe"), "-f", "png", "--profile",
+                   "--output-dir", str(root / "out"), "-s", str(root / "fx.rhai"),
+                   "--device", "cuda"])
+    t1 = time.perf_counter()
+    c1 = _counts()
+    got = (c1["composite_stack_kernel"] - c0["composite_stack_kernel"],
+           c1["gaussian_blur_fused"] - c0["gaussian_blur_fused"])
+    print(f"  resized document: rc {rc} ({t1 - t0:.3f} s, 3840x2160 -> 2000x1200); "
+          f"K-composite {got[0]}, K-blur {got[1]} launches")
+    if rc != 0:
+        raise CheckFailed(f"resized document: CLI exit code {rc}")
+    if got != (2, 0):
+        raise CheckFailed(f"resized document: launched K-composite {got[0]} and K-blur "
+                          f"{got[1]} times, expected 2 and 0")
+    with _plain_fold():
+        want = _plain_resized(root / "in" / "r0.pfe").composite(device=dev)
+    out = np.asarray(Image.open(root / "out" / "r0.png"))
+    if out.shape != (1200, 2000, 4) or not np.array_equal(out, want):
+        raise CheckFailed("resized document: r0.png differs from the plain route")
+    print("  ok  resized document: 2000x1200 PNG equals the plain route's flatten")
+
+
+def check_effects(dev, gen):
+    """Each effect op of EFFECT_OPS at 1920x1080, and resize (all four
+    filters) and resize_canvas through a script context, on the card:
+    byte-equal to the same op on the CPU (ROADMAP C2: transcendentals come
+    from host tables and fields, so the devices agree)."""
+    import numpy as np
+
+    from paintfe_tpu_torch.parallel.pipeline import _OP_TABLE
+    from paintfe_tpu_torch.scripting.engine import execute_script_sync
+
+    print("effect ops at 1920x1080, the card against the CPU (byte-equal):")
+    img = _rand(gen, FHD, dev)
+    host = img.cpu()
+    for name, args in EFFECT_OPS:
+        got = _OP_TABLE[name](img, *args).cpu()
+        want = _OP_TABLE[name](host, *args)
+        if not got.equal(want):
+            raise CheckFailed(f"{name}{args}: the card's bytes differ from the CPU's "
+                              f"({int((got != want).sum())} bytes)")
+    h, w = FHD
+    arr = host.numpy()
+    for filt in ("nearest", "bilinear", "bicubic", "lanczos3"):
+        src = (f'resize_image(1280, 720, "{filt}"); resize_image(2400, 1350, "{filt}"); '
+               'resize_canvas(2000, 1200, "center");')
+        got = execute_script_sync(src, arr, w, h, None, rng_seed=1, device=dev)
+        want = execute_script_sync(src, arr, w, h, None, rng_seed=1, device="cpu")
+        if got[1:3] != want[1:3] or not np.array_equal(got[0], want[0]):
+            raise CheckFailed(f"resize {filt}: the card's result differs from the CPU's")
+    print(f"  ok  {len(EFFECT_OPS)} effect ops, resize (4 filters, down and up) and "
+          "resize_canvas")
+
+
+def time_effects(dev, gen, card):
+    """Each effect op of EFFECT_OPS on one 3840x2160 frame on the card: CUDA
+    events around one call, median of 7 after warm-up (host work inside the
+    call, its host-built fields' uploads among it, included)."""
+    from paintfe_tpu_torch.parallel.pipeline import _OP_TABLE
+
+    img = _rand(gen, UHD, dev)
+    print(f"effect ops at 3840x2160, one call, median of 7 [card: {card}]:")
+    for name, args in EFFECT_OPS:
+        ms = _time_ms(lambda op=_OP_TABLE[name], args=args: op(img, *args), runs=7)
+        print(f"  {name}{args}: {ms:.4f} ms [card: {card}]")
 
 
 def _wall_ms(fn, runs=5):
@@ -1566,9 +1743,12 @@ def main() -> int:
         check_composite_paths(dev, gen, errs["composite_stack_kernel"])
         check_blur_pass(dev, gen, errs["gaussian_blur_pass"])
         torch.cuda.empty_cache()
+        check_effects(dev, gen)
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             phases = drive_main_paths(dev, gen, pathlib.Path(tmp))
         times = time_kernels(dev, gen, card)
+        time_effects(dev, gen, card)
     finally:
         shutdown_encode_pool()
 

@@ -16,7 +16,7 @@ import enum
 import numpy as np
 import torch
 
-from paintfe_tpu_torch.utils.quant import ieee_div, trunc_u8
+from paintfe_tpu_torch.utils.quant import ieee_div, sqrt_f32, trunc_u8
 
 
 class BlendMode(enum.IntEnum):
@@ -59,12 +59,6 @@ class BlendMode(enum.IntEnum):
 # ---------------------------------------------------------------------------
 
 
-def _sqrt_f32(x):
-    """Correctly rounded f32 sqrt: torch's CPU sqrt is not (sqrt(129/255)
-    comes out 1 ulp low); an f64 sqrt rounded once to f32 is."""
-    return torch.sqrt(x.double()).float()
-
-
 def _overlay(b, t):
     return torch.where(b < 0.5, 2.0 * b * t, 1.0 - 2.0 * (1.0 - b) * (1.0 - t))
 
@@ -86,7 +80,7 @@ def _reflect(b, t):
 
 def _soft_light(b, t):
     # W3C soft-light formula
-    d = torch.where(b <= 0.25, ((16.0 * b - 12.0) * b + 4.0) * b, _sqrt_f32(b))
+    d = torch.where(b <= 0.25, ((16.0 * b - 12.0) * b + 4.0) * b, sqrt_f32(b))
     return torch.where(
         t <= 0.5,
         b - (1.0 - 2.0 * t) * b * (1.0 - b),

@@ -18,7 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from paintfe_tpu_torch.core.canvas import flatten, upload
+from paintfe_tpu_torch.core.canvas import flatten, tile_window, upload
 
 
 class DeviceLayerCache:
@@ -94,9 +94,12 @@ def composite_dirty_rect(canvas, cache: DeviceLayerCache, prev: torch.Tensor, re
     handed to K-composite), uploads only the preview's window (grown to the
     64 px tile grid when an adjustment layer needs the active-tile mask) and
     reads that mask off the cached layers; the splice is a slice
-    assignment.  Every pointwise stage of the full composite applies
-    identically on the window, so the splice is bit-equal to a full
-    recomposite.
+    assignment.  When an adjustment layer applies, the window itself is
+    grown to the 64 px tile grid: an edit that empties a tile (or fills an
+    empty one) changes the active-tile mask for the whole tile, also
+    outside the rect (ROADMAP C4).  Every pointwise stage of the full
+    composite applies identically on the window, so the splice is
+    bit-equal to a full recomposite.
 
     rect = (x0, y0, x1, y1) inclusive; `prev` is a u8 [H, W, 4] tensor on
     the cache's device.
@@ -109,6 +112,9 @@ def composite_dirty_rect(canvas, cache: DeviceLayerCache, prev: torch.Tensor, re
     if x1 < x0 or y1 < y0:
         return prev
     bh, bw = y1 - y0 + 1, x1 - x0 + 1
+    if any(l.content == "adjustment" and l.adjustment is not None
+           for _, l in canvas.visible_layers()):
+        y0, x0, bh, bw = tile_window(canvas.height, canvas.width, (y0, x0, bh, bw))
     prev[y0:y0 + bh, x0:x0 + bw] = flatten(
         canvas, cache.get, lambda layer: cache.get(layer, slot="mask"), cache.device,
         rect=(y0, x0, bh, bw))

@@ -1,23 +1,35 @@
-"""Inverse-mapped distortion effects (paintfe_tpu.ops.effects.distort):
-for now the edge-clamped bilinear sampler and the radial bulge.
+"""Distortion effects: pixelate, crystallize, and the inverse-mapped bulge
+and twist (paintfe_tpu.ops.effects.distort counterpart; dents waits for
+ROADMAP A6).
 
-Behavioral contract: src/ops/effects/distort.rs — radial bulge
-(:396-437): dst(x, y) = src(f(x, y)) with an edge-clamped bilinear gather.
-The field is computed in f32 on the image's device in the JAX package's
-expression order; the gather runs through the K-warp kernel wrapper
-(ops/warp_kernel.py, mode "clamp"), which on a CPU tensor takes its plain
-version.  Twist and dents wait for a policy on sin/cos/atan2, which differ
-bitwise between XLA and torch.
+Behavioral contract: src/ops/effects/distort.rs — jittered-grid Voronoi
+crystallize (:26-169), block-center pixelate (:333-373), radial bulge
+(:396-437), falloff-rotation twist (:460-500).  Bulge and twist are
+dst(x, y) = src(f(x, y)) with an edge-clamped bilinear gather through the
+K-warp kernel wrapper (ops/warp_kernel.py, mode "clamp"), which on a CPU
+tensor takes its plain version.  The bulge field is computed in f32 on the
+image's device in the JAX package's expression order.  The twist field
+takes a cos and a sin of each pixel's rotation: under the transcendental
+rule (ROADMAP C2) it is built on the host, each an f64 libm call of the
+f32 argument rounded once to f32, and cached per parameter set, so the
+port's CPU and card outputs are byte-equal and within 1 of the JAX
+package's u8.  Pixelate and crystallize are byte-equal to the JAX
+package; crystallize's Voronoi map depends only on coordinates and the
+seed, so it is built on the host, and only the per-cell sums and the
+gather of the averages run on the device.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from paintfe_tpu_torch.ops.common import coord_grids
+from paintfe_tpu_torch.ops.common import by_frames, coord_grids
 from paintfe_tpu_torch.ops.common import masked as _masked
-from paintfe_tpu_torch.utils.quant import ieee_div
+from paintfe_tpu_torch.utils.hashing import hash_f32
+from paintfe_tpu_torch.utils.quant import ieee_div, sqrt_f32
 
 f32 = np.float32
 
@@ -50,12 +62,6 @@ def sample_bilinear(img_u8: torch.Tensor, fx: torch.Tensor,
     )
 
 
-def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded f32 sqrt on every device: torch's CPU sqrt is not
-    (1 ulp low on some inputs), an f64 sqrt rounded once to f32 is."""
-    return torch.sqrt(x.double()).float()
-
-
 def _bulge_params(amount: float, ox: float, oy: float, h: int, w: int):
     wf, hf = f32(w), f32(h)
     cx = f32(np.clip(ox, 0.0, 1.0)) * max(wf - 1.0, 0.0)
@@ -74,7 +80,7 @@ def bulge_field(amount: float, origin, h: int, w: int, device="cpu"):
     xs, ys = coord_grids(h, w, device)
     dx = xs - cx
     dy = ys - cy
-    dist = _sqrt_f32(dx * dx + dy * dy)
+    dist = sqrt_f32(dx * dx + dy * dy)
     norm = torch.clamp(ieee_div(dist, float(max_r)), max=1.0)
     falloff = 1.0 - norm
     if amount > 0.0:
@@ -98,3 +104,141 @@ def bulge(img: torch.Tensor, amount: float, origin=(0.5, 0.5),
     warped = gather_bilinear_u8(img, src_x, src_y, mode="clamp")
     out = torch.where((norm >= 1.0)[..., None], img, warped)
     return _masked(img, out, mask)
+
+
+# ---------------------------------------------------------------------------
+# Pixelate
+# ---------------------------------------------------------------------------
+
+
+def pixelate(img: torch.Tensor, block_size: int, mask=None) -> torch.Tensor:
+    """Sample each block's center pixel (distort.rs:333-373) of u8
+    [..., H, W, 4]."""
+    bs = max(int(block_size), 2)
+    h, w = img.shape[-3], img.shape[-2]
+    sx = np.minimum((np.arange(w) // bs) * bs + bs // 2, w - 1)
+    sy = np.minimum((np.arange(h) // bs) * bs + bs // 2, h - 1)
+    out = (img.index_select(-3, torch.from_numpy(sy).to(img.device))
+           .index_select(-2, torch.from_numpy(sx).to(img.device)))
+    return _masked(img, out, mask)
+
+
+# ---------------------------------------------------------------------------
+# Crystallize (jittered-grid Voronoi)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=4)
+def crystallize_cells(cs: float, seed: int, h: int, w: int):
+    """The Voronoi map of crystallize: (int64 [H, W] index of each pixel's
+    cell, number of cells).  Each pixel takes the nearest jittered seed of
+    the 3x3 cells around its own, scanned in the reference's order with a
+    strict < (ties keep the first seen), in f32 as the JAX package's
+    general form."""
+    cs = f32(max(cs, 2.0))
+    cells_x = max(int(np.ceil(f32(w) / cs)), 1)
+    cells_y = max(int(np.ceil(f32(h) / cs)), 1)
+    cxs = np.arange(cells_x, dtype=np.uint32)[None, :] + np.zeros((cells_y, 1), np.uint32)
+    cys = np.arange(cells_y, dtype=np.uint32)[:, None] + np.zeros((1, cells_x), np.uint32)
+    jx = hash_f32(cxs, cys, seed)
+    jy = hash_f32(cxs, cys, (seed + 77) & 0xFFFFFFFF)
+    seed_x = (cxs.astype(f32) * cs + jx * cs).reshape(-1)
+    seed_y = (cys.astype(f32) * cs + jy * cs).reshape(-1)
+
+    xs = np.arange(w, dtype=f32)[None, :]
+    ys = np.arange(h, dtype=f32)[:, None]
+    gcx = (xs / cs).astype(np.int32)
+    gcy = (ys / cs).astype(np.int32)
+    px = xs + f32(0.5)
+    py = ys + f32(0.5)
+    best_dist = np.full((h, w), np.inf, f32)
+    best_idx = np.zeros((h, w), np.int64)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            nx = gcx + dx
+            ny = gcy + dy
+            valid = (nx >= 0) & (ny >= 0) & (nx < cells_x) & (ny < cells_y)
+            idx = np.clip(ny, 0, cells_y - 1) * cells_x + np.clip(nx, 0, cells_x - 1)
+            sx = seed_x[idx]
+            sy = seed_y[idx]
+            d = (px - sx) * (px - sx) + (py - sy) * (py - sy)
+            d = np.where(valid, d, f32(np.inf))
+            take = d < best_dist
+            best_dist = np.where(take, d, best_dist)
+            best_idx = np.where(take, idx, best_idx)
+    return best_idx, cells_x * cells_y
+
+
+def crystallize(img: torch.Tensor, cell_size: float, seed: int = 42,
+                mask=None) -> torch.Tensor:
+    """Jittered-grid Voronoi cell averaging (distort.rs:26-169) of u8
+    [..., H, W, 4]: per-cell integer sums (index_add_ on int64, exact and
+    deterministic), each rounded half up as (2s + c) // (2c), the JAX
+    package's integer identity."""
+    h, w = img.shape[-3], img.shape[-2]
+    best_idx, n_cells = crystallize_cells(float(max(cell_size, 2.0)), int(seed), h, w)
+    cell = torch.from_numpy(best_idx).to(img.device)
+    flat_cell = cell.reshape(-1)
+    counts = torch.zeros(n_cells, dtype=torch.int64, device=img.device)
+    counts.index_add_(0, flat_cell, torch.ones_like(flat_cell))
+    safe_c = torch.clamp(counts, min=1)[:, None]
+
+    def run(x):
+        frames = x.reshape((-1, h * w, 4)).long()
+        sums = torch.zeros((frames.shape[0], n_cells, 4), dtype=torch.int64, device=x.device)
+        sums.index_add_(1, flat_cell, frames)
+        avg = ((2 * sums + safe_c) // (2 * safe_c)).to(torch.uint8)
+        avg = torch.where((counts > 0)[:, None], avg, 0)
+        return avg[:, cell].reshape(x.shape)
+
+    return _masked(img, by_frames(run, img), mask)
+
+
+# ---------------------------------------------------------------------------
+# Twist
+# ---------------------------------------------------------------------------
+
+
+def _twist_params(angle_deg: float, ox: float, oy: float, h: int, w: int):
+    wf, hf = f32(w), f32(h)
+    cx = f32(np.clip(ox, 0.0, 1.0)) * max(wf - 1.0, 0.0)
+    cy = f32(np.clip(oy, 0.0, 1.0)) * max(hf - 1.0, 0.0)
+    mx = max(cx, wf - cx)
+    my = max(cy, hf - cy)
+    max_r = f32(max(np.sqrt(f32(mx * mx + my * my)), 1.0))
+    twist_amount = f32(f32(angle_deg) * (f32(np.pi) / f32(180.0)))
+    return cx, cy, max_r, twist_amount
+
+
+@functools.lru_cache(maxsize=2)  # 66 MB an entry at 3840x2160
+def twist_field(angle_deg: float, ox: float, oy: float, h: int, w: int):
+    """The twist's source coordinates (src_x, src_y), f32 [H, W] numpy
+    arrays built on the host: the rotation angle in f32 in the JAX
+    package's order, its cos and sin each an f64 libm call rounded once
+    to f32 (ROADMAP C2)."""
+    cx, cy, max_r, twist_amount = _twist_params(angle_deg, ox, oy, h, w)
+    cx, cy = f32(cx), f32(cy)
+    dx = np.arange(w, dtype=f32)[None, :] - cx
+    dy = np.arange(h, dtype=f32)[:, None] - cy
+    sq = dx * dx + dy * dy
+    dist = np.sqrt(sq.astype(np.float64)).astype(f32)
+    rotation = f32(twist_amount) * (f32(1.0) - dist / f32(max_r))
+    cos_r = np.cos(rotation.astype(np.float64)).astype(f32)
+    sin_r = np.sin(rotation.astype(np.float64)).astype(f32)
+    src_x = np.ascontiguousarray(cx + dx * cos_r - dy * sin_r, f32)
+    src_y = np.ascontiguousarray(cy + dx * sin_r + dy * cos_r, f32)
+    return src_x, src_y
+
+
+def twist(img: torch.Tensor, angle_deg: float, origin=(0.5, 0.5),
+          mask=None) -> torch.Tensor:
+    """Rotation by angle*(1-dist/max_r) about origin (distort.rs:460-500)
+    of u8 [..., H, W, 4]: one K-warp launch (mode "clamp") for the whole
+    batch on the card."""
+    from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
+
+    h, w = img.shape[-3], img.shape[-2]
+    src_x, src_y = twist_field(float(angle_deg), float(origin[0]), float(origin[1]), h, w)
+    warped = gather_bilinear_u8(img, torch.from_numpy(src_x).to(img.device),
+                                torch.from_numpy(src_y).to(img.device), mode="clamp")
+    return _masked(img, warped, mask)

@@ -1,12 +1,23 @@
-"""The Gaussian blur and the median (paintfe_tpu.ops.filters, Gaussian
-and median sections).
+"""Convolution and neighbourhood filters: the Gaussian, box and motion
+blurs, sharpen, glow, the median and reduce-noise (paintfe_tpu.ops.filters
+counterpart; its bokeh and zoom blurs wait for ROADMAP A6).
 
 Behavioral contract: src/ops/filters.rs — separable Gaussian, kernel
 truncated at ceil(3*sigma), H pass u8->f32, V pass f32->u8 round-half-up,
-f32 sums in reference tap order; effects/noise.rs — per-channel median of
-the (2r+1)^2 window, edges replicated.  The blur runs through the K-blur
-kernel wrapper and the median through K-median's (ops/kernels.py); on a
-CPU tensor each takes its plain version.
+f32 sums in reference tap order; effects/blur.rs — box (u8 between the
+passes, integer round-half-up) and motion blur (integer sums of line
+samples); effects/stylize.rs — unsharp mask and glow over the Gaussian;
+effects/noise.rs — per-channel median of the (2r+1)^2 window, edges
+replicated, and the bilateral reduce-noise.  The Gaussian runs through the
+K-blur kernel wrapper (sharpen and glow included) and the median through
+K-median's (ops/kernels.py); on a CPU tensor each takes its plain version.
+The rest is plain torch in the JAX package's expression order, over
+[..., H, W, 4] tensors, and byte-equal to the JAX package, except
+reduce-noise: its weight is an exp of a pixel-dependent argument, which
+under the transcendental rule (ROADMAP C2) comes from a host table (f64
+exp of each f32 argument, rounded once to f32), within 1 of the JAX
+package's u8.  Glow divides by 255 truly, as the reference does, where
+the JAX package multiplies by the reciprocal (ROADMAP C9): within 1.
 """
 
 from __future__ import annotations
@@ -17,7 +28,9 @@ import math
 import numpy as np
 import torch
 
+from paintfe_tpu_torch.ops.common import by_frames, pad_edges, window_sums
 from paintfe_tpu_torch.ops.common import masked as _masked
+from paintfe_tpu_torch.utils.quant import ieee_div, round_u8
 
 f32 = np.float32
 
@@ -68,6 +81,124 @@ def gaussian_blur_with_selection(img: torch.Tensor, sigma: float,
     return out
 
 
+def to_radians_f32(deg) -> np.float32:
+    """f32 deg->rad exactly like Rust f32::to_radians (mul by f32 PI/180)."""
+    return f32(f32(deg) * (f32(np.pi) / f32(180.0)))
+
+
+# ---------------------------------------------------------------------------
+# Box
+# ---------------------------------------------------------------------------
+
+
+def box_blur(img: torch.Tensor, radius: float, mask=None) -> torch.Tensor:
+    """Separable box blur of u8 [..., H, W, 4], u8 between the passes,
+    integer round-half-up (effects/blur.rs:233-318)."""
+    if radius < 0.5:
+        return img
+    r = int(math.ceil(radius))
+    k = 2 * r + 1
+
+    def run(x):
+        h_pass = ((window_sums(x.int(), r, -2) + k // 2) // k).to(torch.uint8)
+        return ((window_sums(h_pass.int(), r, -3) + k // 2) // k).to(torch.uint8)
+
+    return _masked(img, by_frames(run, img), mask)
+
+
+# ---------------------------------------------------------------------------
+# Motion
+# ---------------------------------------------------------------------------
+
+
+def _round_half_away(x: np.ndarray) -> np.ndarray:
+    """Rust f32::round — half away from zero (for coordinate rounding)."""
+    return np.sign(x) * np.floor(np.abs(x) + f32(0.5))
+
+
+@functools.lru_cache(maxsize=32)
+def motion_taps(angle_deg: float, distance: float, h: int, w: int):
+    """The motion blur's sample columns and rows, one [W] and one [H]
+    int64 array a tap, and the f32 reciprocal of the tap count.  The
+    direction's cos and sin are host scalars, as in the JAX package."""
+    angle = to_radians_f32(angle_deg)
+    steps = int(math.ceil(distance))
+    dx = f32(np.cos(angle))
+    dy = f32(np.sin(angle))
+    inv = f32(1.0) / f32(steps * 2 + 1)
+    xs = np.arange(w, dtype=f32)
+    ys = np.arange(h, dtype=f32)
+    taps = []
+    for i in range(-steps, steps + 1):
+        sx = np.clip(_round_half_away(xs + f32(i) * dx).astype(np.int32), 0, w - 1)
+        sy = np.clip(_round_half_away(ys + f32(i) * dy).astype(np.int32), 0, h - 1)
+        taps.append((sx.astype(np.int64), sy.astype(np.int64)))
+    return taps, inv
+
+
+def motion_blur(img: torch.Tensor, angle_deg: float, distance: float,
+                mask=None) -> torch.Tensor:
+    """Directional line-sample average of u8 [..., H, W, 4]
+    (effects/blur.rs:144-210): integer sums, then one f32 multiply by the
+    reciprocal of the tap count, rounded half up."""
+    if distance < 1.0:
+        return img
+    h, w = img.shape[-3], img.shape[-2]
+    taps, inv = motion_taps(float(angle_deg), float(distance), h, w)
+    idx = [(torch.from_numpy(sx).to(img.device), torch.from_numpy(sy).to(img.device))
+           for sx, sy in taps]
+
+    def run(x):
+        src = x.int()
+        acc = torch.zeros_like(src)
+        for sx, sy in idx:
+            acc += src.index_select(-3, sy).index_select(-2, sx)
+        return round_u8(acc.float() * float(inv))
+
+    return _masked(img, by_frames(run, img), mask)
+
+
+# ---------------------------------------------------------------------------
+# Unsharp mask / glow
+# ---------------------------------------------------------------------------
+
+
+def sharpen(img: torch.Tensor, amount: float, radius: float, mask=None) -> torch.Tensor:
+    """Unsharp mask: out = src + amount*(src - gaussian(src, radius)); RGB
+    only, alpha preserved (effects/stylize.rs:96-141).  The blur is one
+    K-blur launch for the whole batch on the card."""
+    blurred = gaussian_blur(img, radius)
+    amt = float(f32(amount))
+
+    def mix(src, blur):
+        s = src[..., 0:3].float()
+        rgb = round_u8(s + amt * (s - blur[..., 0:3].float()))
+        return torch.cat([rgb, src[..., 3:4]], dim=-1)
+
+    return _masked(img, by_frames(mix, img, blurred), mask)
+
+
+def glow_mix(src: torch.Tensor, blur: torch.Tensor, intensity: float) -> torch.Tensor:
+    """Glow's screen formula on u8 [..., 4] source and blur pixels:
+    1-(1-s)(1-b*i) per RGB channel in [0,1], rounded half up, alpha of the
+    source.  The divides by 255 are true divides, the reference's; the JAX
+    package multiplies by the reciprocal (ROADMAP C9)."""
+    inten = float(f32(intensity))
+    s = ieee_div(src[..., 0:3].float(), 255.0)
+    b = ieee_div(blur[..., 0:3].float(), 255.0)
+    res = 1.0 - (1.0 - s) * (1.0 - b * inten)
+    return torch.cat([round_u8(res * 255.0), src[..., 3:4]], dim=-1)
+
+
+def glow(img: torch.Tensor, radius: float, intensity: float, mask=None) -> torch.Tensor:
+    """Screen-blend of source with its blur scaled by intensity
+    (effects/stylize.rs:26-72) of u8 [..., H, W, 4].  The blur is one
+    K-blur launch for the whole batch on the card."""
+    blurred = gaussian_blur(img, radius)
+    out = by_frames(lambda src, blur: glow_mix(src, blur, intensity), img, blurred)
+    return _masked(img, out, mask)
+
+
 # ---------------------------------------------------------------------------
 # Median
 # ---------------------------------------------------------------------------
@@ -112,3 +243,66 @@ def median(img: torch.Tensor, radius: int, mask=None) -> torch.Tensor:
     from paintfe_tpu_torch.ops.kernels import median_kernel
 
     return _masked(img, median_kernel(img, max(int(radius), 1)), mask)
+
+
+# ---------------------------------------------------------------------------
+# Reduce-noise (bilateral)
+# ---------------------------------------------------------------------------
+
+# the range term's integer argument: a sum of three squared u8 differences
+_MAX_SSD = 3 * 255 * 255
+
+
+@functools.lru_cache(maxsize=4)
+def reduce_noise_weights(strength: float, r: int):
+    """The bilateral weights as a host table (ROADMAP C2): row k holds
+    exp(-spatial_k - ssd / range_div) for every integer ssd in
+    [0, 3 * 255^2], where spatial_k is the k-th distinct squared tap
+    distance over 2 r^2.  The argument is computed in f32 in the JAX
+    package's order, the exp is an f64 libm call of it rounded once to f32.
+    Returns ({squared distance: row}, f32 table [rows, 195076])."""
+    sigma_s = f32(r)
+    sigma_r = f32(strength) * f32(2.55)
+    spatial_div = f32(2.0) * sigma_s * sigma_s
+    range_div = f32(2.0) * sigma_r * sigma_r + f32(0.001)
+    d2 = sorted({dx * dx + dy * dy for dy in range(-r, r + 1) for dx in range(-r, r + 1)})
+    rng = np.arange(_MAX_SSD + 1, dtype=f32) / range_div
+    table = np.empty((len(d2), _MAX_SSD + 1), f32)
+    for k, q in enumerate(d2):
+        spatial = f32(q) / spatial_div
+        table[k] = np.exp((-spatial - rng).astype(np.float64)).astype(f32)
+    return {q: k for k, q in enumerate(d2)}, table
+
+
+def reduce_noise(img: torch.Tensor, strength: float, radius: int, mask=None) -> torch.Tensor:
+    """Bilateral filter of u8 [..., H, W, 4]: spatial sigma = radius, range
+    sigma = strength*2.55 (effects/noise.rs:172-261).  Each tap's weight is
+    a gather from reduce_noise_weights' table at the tap's integer squared
+    colour distance; the weighted sums run in f32 in the reference's tap
+    order."""
+    r = max(int(radius), 1)
+    rows, table = reduce_noise_weights(float(strength), r)
+    weights = torch.from_numpy(table).to(img.device)
+
+    def run(x):
+        h, w = x.shape[-3], x.shape[-2]
+        padded = pad_edges(pad_edges(x, r, -3), r, -2)
+        c = x[..., 0:3].int()
+        sums = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        wsum = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+        for dyy in range(-r, r + 1):  # reference accumulation order
+            row = padded[..., r + dyy:r + dyy + h, :, :]
+            for dxx in range(-r, r + 1):
+                p = row[..., r + dxx:r + dxx + w, :]
+                diff = c - p[..., 0:3].int()
+                ssd = (diff * diff).sum(dim=-1)
+                weight = weights[rows[dxx * dxx + dyy * dyy]][ssd.long()]
+                sums = sums + p.float() * weight[..., None]
+                wsum = wsum + weight
+        live = wsum > 0.0
+        # a tensor divided by a tensor: a true divide on the card too
+        inv = torch.ones_like(wsum) / torch.where(live, wsum, 1.0)
+        out = round_u8(sums * inv[..., None])
+        return torch.where(live[..., None], out, x)
+
+    return _masked(img, by_frames(run, img), mask)

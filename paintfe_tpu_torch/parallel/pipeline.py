@@ -4,9 +4,10 @@ batch on one device (paintfe_tpu.parallel.pipeline counterpart).
 Scripts that never read individual pixels are pure op chains: record the
 op sequence once, compose it into one image->image function, and run it
 on a [N, H, W, 4] batch tensor (the batch dimension is written out; the
-JAX package vmaps).  Ops not yet ported are absent from _OP_TABLE, so a
-trace that meets one bails with NotVectorizable, exactly like the JAX
-package's unrecorded names, and the per-image path reports the gap.
+JAX package vmaps).  _OP_TABLE holds the JAX package's ops, name for
+name; a trace that meets any other host function that touches pixels or
+the canvas (get_pixel, resize_image, ...) bails with NotVectorizable and
+the caller runs the script per image.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 
 from paintfe_tpu_torch.ops import filters
 from paintfe_tpu_torch.ops import transform as tfm
-from paintfe_tpu_torch.ops.effects import distort
+from paintfe_tpu_torch.ops.effects import artistic, distort, stylize
+from paintfe_tpu_torch.ops.effects import noise as noise_mod
 
 f32 = np.float32
 
@@ -64,6 +66,28 @@ def _bc_device(img, brightness, contrast):
     return torch.cat([rgb.to(torch.uint8), img[..., 3:4]], dim=-1)
 
 
+def exposure_gain(ev) -> np.float32:
+    """Script-exposure's gain 2^ev (scripting.rs), correctly rounded to f32:
+    an f64 libm pow of the f32 ev, rounded once.  Both of the port's paths
+    use it.  (The JAX package takes numpy's f32 power per image and XLA's
+    exp2 in its batch path; the two parted on 271 of 801 ev values in
+    [-4, 4] and never on a u8 output: ROADMAP C6.)"""
+    return f32(math.pow(2.0, float(f32(ev))))
+
+
+def _exposure_device(img, ev):
+    f = img[..., 0:3].float()
+    rgb = torch.clamp(f * float(exposure_gain(ev)), 0.0, 255.0)
+    return torch.cat([rgb.to(torch.uint8), img[..., 3:4]], dim=-1)
+
+
+def _desaturate_device(img):
+    """Script-desaturate: integer BT.601 (scripting.rs:883-897)."""
+    p = img.int()
+    lum = ((p[..., 0] * 299 + p[..., 1] * 587 + p[..., 2] * 114) // 1000).to(torch.uint8)
+    return torch.stack([lum, lum, lum, img[..., 3]], dim=-1)
+
+
 def levels_lut(black, white, gamma) -> np.ndarray:
     """Script-levels as a 256-entry u8 table (scripting.rs:1054-1075): f32
     math with the power correctly rounded to f32.
@@ -91,15 +115,34 @@ def _invert_device(img):
     return torch.cat([255 - img[..., 0:3], img[..., 3:4]], dim=-1)
 
 
-# op name -> fn(img, *params) -> img, on u8 [..., H, W, 4] tensors
+# op name -> fn(img, *params) -> img, on u8 [..., H, W, 4] tensors; the
+# constants (seed 42, sharpen radius 1, reduce-noise radius 2, 20 oil
+# levels, halftone at 45 degrees) are the JAX package's
 _OP_TABLE = {
     "apply_blur": lambda img, sigma: filters.gaussian_blur(img, sigma),
+    "apply_box_blur": lambda img, r: filters.box_blur(img, float(r)),
+    "apply_motion_blur": lambda img, a, d: filters.motion_blur(img, a, d),
+    "apply_sharpen": lambda img, amount: filters.sharpen(img, amount, 1.0),
+    "apply_reduce_noise": lambda img, s: filters.reduce_noise(img, s, 2),
     "apply_median": lambda img, r: filters.median(img, r),
-    "apply_bulge": lambda img, amount: distort.bulge(img, amount),
     "apply_invert": _invert_device,
+    "apply_desaturate": _desaturate_device,
     "apply_sepia": lambda img, *s: _sepia_device(img, *s),
     "apply_brightness_contrast": lambda img, b, c: _bc_device(img, b, c),
+    "apply_exposure": _exposure_device,
     "apply_levels": lambda img, b, w, g: _levels_device(img, b, w, g),
+    "apply_noise": lambda img, amount, mono: noise_mod.add_noise(
+        img, amount, noise_mod.NoiseType.GAUSSIAN, bool(mono), 42, 1.0, 1),
+    "apply_pixelate": lambda img, size: distort.pixelate(img, max(int(size), 1)),
+    "apply_crystallize": lambda img, size: distort.crystallize(
+        img, float(max(int(size), 1)), 42),
+    "apply_bulge": lambda img, amount: distort.bulge(img, amount),
+    "apply_twist": lambda img, angle: distort.twist(img, angle),
+    "apply_glow": lambda img, r, i: filters.glow(img, r, i),
+    "apply_vignette": lambda img, s, soft: stylize.vignette(img, s, soft),
+    "apply_halftone": lambda img, dot: stylize.halftone(img, dot, 45.0),
+    "apply_ink": lambda img, s, t: artistic.ink(img, s, t),
+    "apply_oil_painting": lambda img, r: artistic.oil_painting(img, max(int(r), 1), 20),
     "flip_horizontal": tfm.flip_horizontal,
     "flip_vertical": tfm.flip_vertical,
     "rotate_180": tfm.rotate_180,
@@ -115,13 +158,36 @@ def _build_arg_specs():
     def int_min1(v):
         return max(_as_int(v), 1)
 
+    def int_min1_f(v):
+        return float(max(_as_int(v), 1))
+
+    def int_f(v):
+        return float(_as_int(v))
+
+    def passthrough(v):
+        return v
+
     return {
         "apply_blur": (_as_float,),
+        "apply_box_blur": (int_f,),
+        "apply_motion_blur": (_as_float, _as_float),
+        "apply_sharpen": (_as_float,),
+        "apply_reduce_noise": (_as_float,),
         "apply_median": (int_min1,),
-        "apply_bulge": (_as_float,),
         "apply_sepia": (_as_float,),
         "apply_brightness_contrast": (_as_float, _as_float),
+        "apply_exposure": (_as_float,),
         "apply_levels": (_as_float, _as_float, _as_float),
+        "apply_noise": (_as_float, passthrough),
+        "apply_pixelate": (int_min1,),
+        "apply_crystallize": (int_min1_f,),
+        "apply_bulge": (_as_float,),
+        "apply_twist": (_as_float,),
+        "apply_glow": (_as_float, _as_float),
+        "apply_vignette": (_as_float, _as_float),
+        "apply_halftone": (_as_float,),
+        "apply_ink": (_as_float, _as_float),
+        "apply_oil_painting": (int_min1,),
     }
 
 
@@ -204,7 +270,7 @@ def trace_script(source: str, dims: Optional[Tuple[int, int]] = None
 
 def from_jax_ops(ops) -> List[PipelineOp]:
     """The JAX package's PipelineOp list (name plus params tuple) as the
-    port's; raises NotVectorizable for an op the port has not ported."""
+    port's; raises NotVectorizable for a name outside _OP_TABLE."""
     out = []
     for op in ops:
         if op.name not in _OP_TABLE:

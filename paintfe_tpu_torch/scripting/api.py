@@ -4,9 +4,10 @@
 Canvas/pixel access, the apply_* effect functions, layer/canvas transforms
 with CanvasOpRequest replay, utilities (math, RNG, color conversion) and
 the selection API.  The pixel buffer stays a numpy array on the host;
-apply_blur, apply_median and apply_bulge run on the context's torch
-device.  Every apply_* whose op module is not yet ported stays registered
-under its name and raises a script error saying so.
+the effect functions (apply_blur, apply_box_blur, ... apply_oil_painting)
+run on the context's torch device, with the JAX package's argument
+conversions and constants; resize_image and resize_canvas are host numpy,
+as in the JAX package.
 
 The script-only pointwise variants (apply_invert, apply_desaturate,
 apply_sepia, apply_brightness_contrast, apply_hsl, apply_exposure,
@@ -27,8 +28,9 @@ import torch
 
 from paintfe_tpu_torch.ops import filters
 from paintfe_tpu_torch.ops import transform as tfm
-from paintfe_tpu_torch.ops.effects import distort
-from paintfe_tpu_torch.parallel.pipeline import levels_lut
+from paintfe_tpu_torch.ops.effects import artistic, distort, stylize
+from paintfe_tpu_torch.ops.effects import noise as noise_mod
+from paintfe_tpu_torch.parallel.pipeline import exposure_gain, levels_lut
 from paintfe_tpu_torch.scripting.interp import UNIT, Closure, RhaiRuntimeError, to_display
 from paintfe_tpu_torch.utils.device import resolve_device
 
@@ -284,28 +286,11 @@ def closure_is_pure(cb: Closure, user_fns=frozenset()) -> bool:
     return ok
 
 
-# apply_* (and canvas) functions whose op modules wait for a later port
-NOT_YET_PORTED = (
-    "apply_box_blur", "apply_motion_blur", "apply_sharpen",
-    "apply_reduce_noise", "apply_noise", "apply_pixelate",
-    "apply_crystallize", "apply_twist", "apply_glow",
-    "apply_vignette", "apply_halftone", "apply_ink", "apply_oil_painting",
-    "resize_image", "resize_canvas",
-)
-
-
-def _not_yet_ported(name):
-    def stub(*args):
-        raise RhaiRuntimeError(f"{name} is not yet ported to paintfe_tpu_torch")
-    return stub
-
-
 class ScriptContext:
     def __init__(self, pixels: np.ndarray, width: int, height: int,
                  mask: Optional[np.ndarray], rng_seed: Optional[int] = None,
                  device="cuda"):
-        # torch device the device-side ops (apply_blur, apply_median,
-        # apply_bulge) run on; CUDA with no card raises
+        # torch device the effect functions run on; CUDA with no card raises
         self.device = resolve_device(device)
         self.pixels = np.asarray(pixels, np.uint8).reshape(height, width, 4).copy()
         self.width = width
@@ -585,23 +570,41 @@ def build_host_fns(ctx: ScriptContext, interp_ref: dict) -> Dict[str, Any]:
     def _on_device():
         return torch.from_numpy(_img()).to(ctx.device)
 
-    @register("apply_blur")
-    def apply_blur(sigma):
-        _set(filters.gaussian_blur_with_selection(
-            _on_device(), _as_float(sigma), ctx.mask_or_none()).cpu().numpy())
+    def _effect(op, *args):
+        _set(op(_on_device(), *args, ctx.mask_or_none()).cpu().numpy())
 
-    @register("apply_median")
-    def apply_median(r):
-        _set(filters.median(_on_device(), _as_int(r),
-                            ctx.mask_or_none()).cpu().numpy())
-
-    @register("apply_bulge")
-    def apply_bulge(amount):
-        _set(distort.bulge(_on_device(), _as_float(amount), (0.5, 0.5),
-                           ctx.mask_or_none()).cpu().numpy())
-
-    for name in NOT_YET_PORTED:
-        register(name)(_not_yet_ported(name))
+    register("apply_blur")(lambda sigma: _set(filters.gaussian_blur_with_selection(
+        _on_device(), _as_float(sigma), ctx.mask_or_none()).cpu().numpy()))
+    register("apply_box_blur")(lambda r: _effect(
+        filters.box_blur, float(_as_int(r))))
+    register("apply_motion_blur")(lambda angle, dist: _effect(
+        filters.motion_blur, _as_float(angle), _as_float(dist)))
+    register("apply_sharpen")(lambda amount: _effect(
+        filters.sharpen, _as_float(amount), 1.0))
+    register("apply_reduce_noise")(lambda s: _effect(
+        filters.reduce_noise, _as_float(s), 2))
+    register("apply_median")(lambda r: _effect(filters.median, max(_as_int(r), 1)))
+    register("apply_noise")(lambda amount, mono: _effect(
+        noise_mod.add_noise, _as_float(amount), noise_mod.NoiseType.GAUSSIAN,
+        bool(mono), 42, 1.0, 1))
+    register("apply_pixelate")(lambda size: _effect(
+        distort.pixelate, max(_as_int(size), 1)))
+    register("apply_crystallize")(lambda size: _effect(
+        distort.crystallize, float(max(_as_int(size), 1)), 42))
+    register("apply_bulge")(lambda amount: _effect(
+        distort.bulge, _as_float(amount), (0.5, 0.5)))
+    register("apply_twist")(lambda angle: _effect(
+        distort.twist, _as_float(angle), (0.5, 0.5)))
+    register("apply_glow")(lambda r, i: _effect(
+        filters.glow, _as_float(r), _as_float(i)))
+    register("apply_vignette")(lambda s, soft: _effect(
+        stylize.vignette, _as_float(s), _as_float(soft)))
+    register("apply_halftone")(lambda dot: _effect(
+        stylize.halftone, _as_float(dot), 45.0, stylize.HalftoneShape.CIRCLE))
+    register("apply_ink")(lambda s, t: _effect(
+        artistic.ink, _as_float(s), _as_float(t)))
+    register("apply_oil_painting")(lambda r: _effect(
+        artistic.oil_painting, max(_as_int(r), 1), 20))
 
     # -- script-only pointwise variants (exact per scripting.rs) --------------
 
@@ -709,7 +712,7 @@ def build_host_fns(ctx: ScriptContext, interp_ref: dict) -> Dict[str, Any]:
 
     @register("apply_exposure")
     def apply_exposure(ev):
-        gain = f32(2.0) ** f32(_as_float(ev))
+        gain = exposure_gain(_as_float(ev))
         for ch in range(3):
             v = ctx.pixels[..., ch].astype(f32) * gain
             ctx.pixels[..., ch] = np.clip(v, 0.0, 255.0).astype(np.uint8)
@@ -780,6 +783,45 @@ def build_host_fns(ctx: ScriptContext, interp_ref: dict) -> Dict[str, Any]:
     def rotate_canvas_180():
         ctx.pixels = tfm.rotate_180(ctx.pixels)
         ctx.canvas_ops.append(CanvasOpRequest("rot180"))
+        return UNIT
+
+    _FILTER_ALIASES = {
+        "nearest": "nearest", "bilinear": "bilinear", "bicubic": "bicubic",
+        "lanczos": "lanczos3", "lanczos3": "lanczos3",
+    }
+
+    @register("resize_image")
+    def resize_image(new_w, new_h, method="bilinear"):
+        nw = min(max(_as_int(new_w), 1), 32768)
+        nh = min(max(_as_int(new_h), 1), 32768)
+        filt = _FILTER_ALIASES.get(str(method).lower(), "bilinear")
+        if nw == ctx.width and nh == ctx.height:
+            return UNIT
+        ctx.pixels = tfm.resize(ctx.pixels, nw, nh, filt)
+        ctx.width, ctx.height = nw, nh
+        if ctx.mask is not None:
+            ctx.mask = None  # reference leaves the mask stale; drop for safety
+        ctx.canvas_ops.append(CanvasOpRequest("resize_image", w=nw, h=nh, filter=filt))
+        return UNIT
+
+    _ANCHORS = {
+        "top-left": (0, 0), "tl": (0, 0), "top-center": (1, 0), "tc": (1, 0),
+        "top-right": (2, 0), "tr": (2, 0), "center-left": (0, 1), "cl": (0, 1),
+        "center": (1, 1), "c": (1, 1), "center-right": (2, 1), "cr": (2, 1),
+        "bottom-left": (0, 2), "bl": (0, 2), "bottom-center": (1, 2), "bc": (1, 2),
+        "bottom-right": (2, 2), "br": (2, 2),
+    }
+
+    @register("resize_canvas")
+    def resize_canvas(new_w, new_h, anchor="top-left"):
+        nw = min(max(_as_int(new_w), 1), 32768)
+        nh = min(max(_as_int(new_h), 1), 32768)
+        at = _ANCHORS.get(str(anchor).lower(), (0, 0))
+        ctx.pixels = tfm.resize_canvas(ctx.pixels, nw, nh, at, (0, 0, 0, 0))
+        ctx.width, ctx.height = nw, nh
+        if ctx.mask is not None:
+            ctx.mask = None
+        ctx.canvas_ops.append(CanvasOpRequest("resize_canvas", w=nw, h=nh, anchor=at))
         return UNIT
 
     # -- utility --------------------------------------------------------------

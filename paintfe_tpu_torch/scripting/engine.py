@@ -15,7 +15,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from paintfe_tpu_torch.errors import NotYetPorted
 from paintfe_tpu_torch.ops import transform as tfm
 from paintfe_tpu_torch.scripting.api import CanvasOpRequest, ScriptContext, build_host_fns
 from paintfe_tpu_torch.scripting.interp import Interpreter, RhaiRuntimeError
@@ -150,21 +149,28 @@ _LAYER_OPS = {
 }
 
 
+def _layer_op(op: CanvasOpRequest):
+    """The per-layer function of one canvas op."""
+    if op.kind == "resize_image":
+        return lambda px: tfm.resize(px, op.w, op.h, op.filter)
+    if op.kind == "resize_canvas":
+        return lambda px: tfm.resize_canvas(px, op.w, op.h, op.anchor)
+    return _LAYER_OPS[op.kind]
+
+
 def apply_canvas_ops(canvas, ops: List[CanvasOpRequest], skip_layer: int):
     """Replay canvas-wide ops on every layer except `skip_layer` (which
     already received them inside the script), then fix canvas dims
-    (scripting.rs:1640-1723).  The flips and rotations the port's script
-    API emits are ported; the resize kinds raise NotYetPorted."""
+    (scripting.rs:1640-1723)."""
     for op in ops:
-        fn = _LAYER_OPS.get(op.kind)
-        if fn is None:
-            raise NotYetPorted(f"canvas op '{op.kind}' is not yet ported to "
-                               "paintfe_tpu_torch")
+        fn = _layer_op(op)
         for idx, layer in enumerate(canvas.layers):
             if idx != skip_layer:
                 layer.pixels = fn(layer.pixels)
         if op.kind in ("rot90cw", "rot90ccw"):
             canvas.width, canvas.height = canvas.height, canvas.width
+        elif op.kind in ("resize_image", "resize_canvas"):
+            canvas.width, canvas.height = op.w, op.h
         # The reference's apply_canvas_ops never touches the selection; the
         # dense [H, W] selection only goes when the dimensions changed and
         # its stale shape would crash downstream consumers.

@@ -21,6 +21,13 @@ def ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.tensor(c, dtype=torch.float32, device=x.device)
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 sqrt on every device: torch's CPU sqrt is not
+    (sqrt(129/255) comes out 1 ulp low), an f64 sqrt rounded once to f32
+    is."""
+    return torch.sqrt(x.double()).float()
+
+
 def round_u8(x: torch.Tensor) -> torch.Tensor:
     """Round half up, clamp to [0, 255], cast to u8 (Rust
     ``v.round().clamp(0, 255) as u8`` for finite v)."""

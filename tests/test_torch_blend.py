@@ -9,6 +9,7 @@ import torch
 
 from paintfe_tpu.core import blend as jblend
 from paintfe_tpu_torch.core import blend as tblend
+from paintfe_tpu_torch.utils import quant as tquant
 
 
 def _pair(seed, shape=(24, 40)):
@@ -48,7 +49,7 @@ def test_soft_light_sqrt_is_correctly_rounded():
     # torch's CPU sqrt gives 0x3F3614BF for sqrt(129/255); the correctly
     # rounded value, which numpy and XLA give, is 0x3F3614C0
     b = torch.tensor([129.0], dtype=torch.float32) / torch.tensor(255.0)
-    got = tblend._sqrt_f32(b).numpy().view(np.uint32)[0]
+    got = tquant.sqrt_f32(b).numpy().view(np.uint32)[0]
     want = np.sqrt(np.float32(129.0) / np.float32(255.0)).view(np.uint32)
     assert got == want == 0x3F3614C0
     # and through the mixer: base 129, top above 0.5 takes the sqrt branch

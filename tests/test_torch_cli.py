@@ -64,6 +64,24 @@ def test_spatial_effects_cli_matches_jax_cli(inputs, shard):
         np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
 
 
+@pytest.mark.parametrize("shard", [False, True])
+def test_effects_cli_matches_jax_cli(inputs, shard):
+    (inputs / "fx3.rhai").write_text(
+        "apply_box_blur(2); apply_motion_blur(30.0, 3.0); apply_sharpen(1.2); "
+        "apply_pixelate(2); apply_crystallize(5); apply_glow(1.0, 0.5); "
+        "apply_vignette(0.5, 0.9); apply_oil_painting(2); apply_ink(40.0, 20.0);")
+    common = ["-i", str(inputs / "in*.png"), "-s", str(inputs / "fx3.rhai"),
+              "-f", "png"]
+    assert jcli.main(common + ["--output-dir", str(inputs / "jax")]) == 0
+    extra = ["--shard"] if shard else []
+    assert tcli.main(common + ["--output-dir", str(inputs / "port"),
+                               "--device", "cpu", *extra]) == 0
+    ref, out = _decoded(inputs / "jax"), _decoded(inputs / "port")
+    assert sorted(out) == sorted(ref) == ["in0.png", "in1.png", "in2.png"]
+    for name in ref:
+        np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+
+
 def test_run_one_defaults_to_the_card(inputs):
     import inspect
 
@@ -86,7 +104,7 @@ def test_cli_without_script_copies_pixels(inputs):
 @pytest.mark.parametrize("shard", [False, True])
 @pytest.mark.parametrize("script,match", [
     ("let x = ;", "script error"),
-    ("apply_twist(2.0);", "apply_twist is not yet ported"),
+    ("apply_pixelate(2.5);", "must be an integer"),
 ])
 def test_script_failures_keep_going_with_rc_1(inputs, capsys, shard, script, match):
     (inputs / "bad.rhai").write_text(script)

@@ -518,3 +518,43 @@ def test_warp_kernel_vector_scalar_and_tail_paths(dev, w, layout, mode):
     assert torch.equal(out, warp_kernel.gather_bilinear_plain(src, sx, sy, mode))
     path = warp_kernel.warp_split(w, sx.data_ptr(), sy.data_ptr(), out.data_ptr())[0]
     assert path == ("vector" if layout in ("aligned", "batch") and w % 4 == 0 else "scalar")
+
+
+# every op of the batched table but the ones already held above, at small
+# sizes: the card's bytes equal the CPU's (ROADMAP C2: host-built fields)
+_EFFECT_OPS = [
+    ("apply_box_blur", (3.0,)), ("apply_motion_blur", (30.0, 4.0)),
+    ("apply_sharpen", (1.5,)), ("apply_reduce_noise", (25.0,)),
+    ("apply_desaturate", ()), ("apply_exposure", (0.7,)), ("apply_noise", (30.0, True)),
+    ("apply_noise", (30.0, False)), ("apply_pixelate", (5,)), ("apply_crystallize", (6.0,)),
+    ("apply_twist", (120.0,)), ("apply_glow", (3.0, 1.7)), ("apply_vignette", (0.6, 0.8)),
+    ("apply_halftone", (6.0,)), ("apply_ink", (50.0, 30.0)), ("apply_oil_painting", (3,)),
+]
+
+
+@pytest.mark.parametrize("name,args", _EFFECT_OPS)
+@pytest.mark.parametrize("shape", [(37, 53), (3, 64, 96)])
+def test_effect_ops_on_the_card_equal_the_cpu(dev, name, args, shape):
+    img = _img(shape, 7, dev)
+    op = pipeline._OP_TABLE[name]
+    counts = (kernels.gaussian_blur_fused.launches, warp_kernel.gather_bilinear_u8.launches)
+    out = op(img, *args)
+    launched = (kernels.gaussian_blur_fused.launches - counts[0],
+                warp_kernel.gather_bilinear_u8.launches - counts[1])
+    # one K-blur launch for sharpen and glow, one K-warp launch for twist,
+    # for a frame and for a batch alike
+    assert launched == ((1, 0) if name in ("apply_sharpen", "apply_glow") else
+                        (0, 1) if name == "apply_twist" else (0, 0))
+    assert torch.equal(out.cpu(), op(img.cpu(), *args))
+
+
+@pytest.mark.parametrize("filt", ["nearest", "bilinear", "bicubic", "lanczos3"])
+def test_resize_through_a_card_context_equals_the_cpu(dev, filt):
+    from paintfe_tpu_torch.scripting import engine
+
+    img = _img((45, 70), 8, "cpu").numpy()
+    src = f'resize_image(33, 61, "{filt}"); resize_canvas(50, 40, "center"); apply_twist(30.0);'
+    on_card = engine.execute_script_sync(src, img, 70, 45, None, rng_seed=1, device=dev)
+    on_cpu = engine.execute_script_sync(src, img, 70, 45, None, rng_seed=1, device="cpu")
+    np.testing.assert_array_equal(on_card[0], on_cpu[0])
+    assert on_card[1:3] == on_cpu[1:3] == (50, 40)

@@ -415,3 +415,90 @@ def test_layer_cache_generation_invalidate_and_clear_match_jax(slot):
     assert (resident, nbytes) == (jresident, jnbytes)
     for got, want in zip(served, jserved):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("rect", [(40, 40, 63, 63), (40, 40, 100, 70)])
+def test_dirty_rect_over_a_corner_of_an_emptied_tile_equals_the_full_flatten(rect):
+    """ROADMAP C4: tile (0..64, 0..64) holds data only in its corner
+    (40..64, 40..64) of one layer, under an invert adjustment layer.  An
+    edit erases that corner and the dirty rect covers it: the tile turns
+    empty, and the mask clears the whole tile, also outside the rect.  The
+    splice must equal the full flatten, which equals the JAX package's
+    full composite."""
+    jdoc = _document(33, ADJUSTMENTS[4])
+    for layer in jdoc.layers:
+        if layer.content != "adjustment":
+            layer.pixels[0:64, 0:64] = 0
+    jdoc.layers[1].pixels[40:64, 40:64] = 90
+    doc = tcanvas.canvas_from_document(jdoc)
+    cache = tdevice.DeviceLayerCache("cpu")
+    full = tdevice.composite_device(doc, cache)
+    assert (full.numpy()[0:40, 0:40, 0:3] > 0).all()  # an active tile, inverted
+    px = doc.layers[1].pixels.copy()
+    px[40:64, 40:64] = 0
+    doc.layers[1].pixels = px
+    jdoc.layers[1].pixels = px.copy()
+    updated = tdevice.composite_dirty_rect(doc, cache, full, rect)
+    want = doc.composite(device="cpu")
+    np.testing.assert_array_equal(want, jdoc.composite())
+    np.testing.assert_array_equal(updated.numpy(), want)
+    assert (updated.numpy()[0:64, 0:64] == 0).all()
+
+
+def test_dirty_rect_of_whole_tiles_matches_the_jax_dirty_rect():
+    """A rect that lies on the tile grid is not grown: the splice equals
+    the JAX package's dirty-rect path and the full flatten."""
+    jdoc = _document(34, ADJUSTMENTS[2])
+    doc = tcanvas.canvas_from_document(jdoc)
+    cache, jcache = tdevice.DeviceLayerCache("cpu"), jdevice.DeviceLayerCache()
+    full = tdevice.composite_device(doc, cache)
+    jfull = jdevice.composite_device(jdoc, jcache)
+    px = jdoc.layers[0].pixels.copy()
+    px[64:128, 0:64] = np.random.default_rng(35).integers(0, 256, (64, 64, 4), np.uint8)
+    jdoc.layers[0].pixels = px
+    doc.layers[0].pixels = px.copy()
+    updated = tdevice.composite_dirty_rect(doc, cache, full, (0, 64, 63, 127))
+    jupdated = jdevice.composite_dirty_rect(jdoc, jcache, jfull, (0, 64, 63, 127))
+    np.testing.assert_array_equal(updated.numpy(), np.asarray(jupdated))
+    np.testing.assert_array_equal(updated.numpy(), doc.composite(device="cpu"))
+
+
+@pytest.mark.parametrize("ops", [
+    [("resize_image", 97, 61, "lanczos3", (0, 0)), ("resize_canvas", 120, 90, "bilinear", (1, 1))],
+    [("resize_canvas", 70, 140, "bilinear", (2, 0)), ("resize_image", 40, 150, "bicubic", (0, 0))],
+    [("resize_image", 150, 130, "nearest", (0, 0)), ("rot90cw", 0, 0, "bilinear", (0, 0))],
+])
+def test_resize_replay_on_a_layered_document_matches_jax(ops):
+    """apply_canvas_ops replays resize_image / resize_canvas on every layer
+    but the active one (layer masks cropped or zero-padded to the new
+    size), as the JAX engine does; the flatten of the result equals the
+    JAX package's."""
+    from paintfe_tpu.scripting import api as japi
+    from paintfe_tpu.scripting import engine as jengine
+    from paintfe_tpu_torch.ops import transform as tfm
+    from paintfe_tpu_torch.scripting import api as tapi
+    from paintfe_tpu_torch.scripting import engine as tengine
+
+    jdoc = _document(36, ADJUSTMENTS[2])
+    doc = tcanvas.canvas_from_document(jdoc)
+    active = jdoc.active_layer_index
+    for kind, w, h, filt, anchor in ops:  # the script's own layer, as the script did it
+        px = jdoc.layers[active].pixels
+        if kind == "resize_image":
+            px = tfm.resize(px, w, h, filt)
+        elif kind == "resize_canvas":
+            px = tfm.resize_canvas(px, w, h, anchor)
+        else:
+            px = tfm.rotate_90cw(px)
+        jdoc.layers[active].pixels = px
+        doc.layers[active].pixels = px.copy()
+    jengine.apply_canvas_ops(jdoc, [japi.CanvasOpRequest(k, w, h, f, a)
+                                    for k, w, h, f, a in ops], active)
+    tengine.apply_canvas_ops(doc, [tapi.CanvasOpRequest(k, w, h, f, a)
+                                   for k, w, h, f, a in ops], active)
+    assert (doc.width, doc.height) == (jdoc.width, jdoc.height)
+    for layer, jlayer in zip(doc.layers, jdoc.layers):
+        np.testing.assert_array_equal(layer.pixels, jlayer.pixels)
+        if jlayer.mask is not None:
+            np.testing.assert_array_equal(layer.mask, jlayer.mask)
+    np.testing.assert_array_equal(doc.composite(device="cpu"), jdoc.composite())
