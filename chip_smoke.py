@@ -27,11 +27,15 @@ It builds the port's CUDA kernels from csrc/, then:
      radius, on both of its routes;
   2. holds each of the 13 effect ops of the script API (EFFECT_OPS), and
      resize (four filters) and resize_canvas, at 1920x1080 on the card
-     against the same op on the CPU, byte for byte;
-  3. drives four main paths and one entry call, each with every kernel
+     against the same op on the CPU, byte for byte; then runs two
+     execute_script_async workers at once, each on its own CUDA stream,
+     blurring at different sigmas around a twist, 20 rounds at 1920x1080,
+     each result held against the plain versions (K-blur's constant taps
+     are shared by the streams);
+  3. drives five main paths and one entry call, each with every kernel
      launch count set to 0 just before it and read just after:
-     - the headline path: the serial CLI (two 3840x2160 PNGs, --device
-       cuda) and the --shard CLI (four 3840x2160 and two 1920x1080 PNGs,
+     - the headline path: the serial CLI (one 3840x2160 PNG, --device
+       cuda) and the --shard CLI (two 3840x2160 and two 1920x1080 PNGs,
        two shape buckets) on the headline script, then the headline 4K
        chain frame;
      - the spatial-effects path: the same two CLI runs on a script that
@@ -46,12 +50,23 @@ It builds the port's CUDA kernels from csrc/, then:
        built on the card must equal the host definition, and a preview
        overlay composited on the card the CPU flatten;
      - the effects path: the serial CLI (two 3840x2160 PNGs) and --shard
-       (three 3840x2160 and two 1920x1080) on a script calling each of the
+       (two 3840x2160 and two 1920x1080) on a script calling each of the
        13 effect ops once (K-blur twice, under sharpen and glow, and K-warp
        once, under twist, per image and per bucket), printing the --shard
        run's peak device memory; then one 3840x2160 six-layer document
        through resize_image and resize_canvas (replayed on the other
        layers) and the flatten on K-composite;
+     - the inputs path (written from a seed): two 16-bit 3840x2160 PNGs
+       whose rows cycle PNG filters 0-4, a 16-bit 3840x2160 TIFF (deflate)
+       and a 512x512 one (LZW), a six-layer 3840x2160 .pdn and a 3840x2160
+       .pfe with a text layer (outline, shadow of blur radius 6) through
+       the headline script, serially (-f png, and -f tiff on the PNGs) and
+       under --shard, each file equal to the same run's with --device cpu;
+       --animate to APNG over four 4K PNGs and the .pdn and to GIF at
+       256x256, serially and under --shard (equal files); and --trace-dir,
+       whose trace must name K-blur's and K-composite's kernels; then each
+       stage of the path timed alone (16-bit PNG load: zlib, defilter;
+       .pdn load: NRBF, gzip; flatten; text rasterise; encodes);
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -125,11 +140,12 @@ SHAPES = [(37, 53), (257, 511), UHD]
 OPACITIES = (0.0, 0.37, 1.0, 1.5)
 TIMED_RUNS = 15
 # 3840x2160 PNGs of the headline and spatial paths: serial, and --shard
-# (beside two 1920x1080 ones); the effects path's
-SERIAL_UHD = 2
-SHARD_UHD = 4
+# (beside two 1920x1080 ones); the effects path's (cut from 2, 4 and 3 to
+# make room for the inputs path)
+SERIAL_UHD = 1
+SHARD_UHD = 2
 EFFECTS_SERIAL_UHD = 2
-EFFECTS_SHARD_UHD = 3
+EFFECTS_SHARD_UHD = 2
 # K-median's timed radii at 3840x2160 (r = 40 and 110: its staged and
 # global counting routes), and K-blur's timed sigmas, one frame and a batch
 # of BATCH frames (sigma 60, r = 180: the split route)
@@ -708,6 +724,159 @@ def _plain_effects(img):
         return compile_pipeline(trace_script(EFFECTS))(img)
 
 
+# ---------------------------------------------------------------------------
+# Input writers of the inputs path (tests/test_torch_deep_io.py and
+# tests/test_torch_pdn.py use them too): 16-bit PNGs whose rows take every
+# PNG filter, and Paint.NET .pdn documents
+# ---------------------------------------------------------------------------
+
+
+def _png_chunk(tag, payload):
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(payload)) + tag + payload
+            + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+
+
+def png16_bytes(pixels, filters=(0, 1, 2, 3, 4), level=1):
+    """A 16-bit RGB or RGBA PNG (u16 [H, W, 3 or 4]) whose row y takes PNG
+    filter filters[y % len(filters)], encoded with numpy (each filter
+    predicts from the unfiltered bytes, so every row encodes at once)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, ch = pixels.shape
+    bpp = 2 * ch
+    data = np.ascontiguousarray(pixels, ">u2").view(np.uint8).reshape(h, w * bpp)
+    line = data.astype(np.int16)
+    prev = np.zeros_like(line)
+    prev[1:] = line[:-1]
+    a = np.zeros_like(line)
+    a[:, bpp:] = line[:, :-bpp]
+    c = np.zeros_like(line)
+    c[:, bpp:] = prev[:, :-bpp]
+    kinds = np.asarray(filters, np.uint8)[np.arange(h) % len(filters)]
+    raw = np.empty((h, w * bpp + 1), np.uint8)
+    raw[:, 0] = kinds
+    for f in range(5):
+        rows = kinds == f
+        if not rows.any():
+            continue
+        la, lb, lc = a[rows], prev[rows], c[rows]
+        if f == 0:
+            pred = np.zeros_like(la)
+        elif f == 1:
+            pred = la
+        elif f == 2:
+            pred = lb
+        elif f == 3:
+            pred = (la + lb) >> 1
+        else:
+            pa, pb, pc = np.abs(lb - lc), np.abs(la - lc), np.abs(la + lb - 2 * lc)
+            pred = np.where((pa <= pb) & (pa <= pc), la, np.where(pb <= pc, lb, lc))
+        raw[rows, 1:] = ((line[rows] - pred) & 0xFF).astype(np.uint8)
+    ihdr = struct.pack(">IIBBBBB", w, h, 16, 6 if ch == 4 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _png_chunk(b"IEND", b""))
+
+
+def _lp(s):
+    """An MS-NRBF length-prefixed string (7-bit encoded length)."""
+    b = s.encode()
+    n, out = len(b), bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out) + b
+
+
+def pdn_bytes(layers, width, height, chunk=1 << 18, stride_pad=0, level=1):
+    """A Paint.NET .pdn document of `layers`, bottom first: dicts of name,
+    pixels (u8 RGBA [H, W, 4]), visible, opacity (0-255) and blend (the
+    blend op's name: "Normal", "Multiply", "Screen", ...).  The container
+    is the PDN3 magic, the XML header and the .NET BinaryFormatter graph
+    Document -> BitmapLayer -> LayerProperties / BitmapLayerProperties
+    (blendOp) / Surface -> deferred MemoryBlock, then each block's
+    DeferredFormatter payload: BGRA rows at the surface stride (w * 4 +
+    stride_pad), in gzip chunks of `chunk` bytes.  Each class after its
+    first use is written as a ClassWithId record, as the formatter does."""
+    import gzip
+    import struct
+
+    import numpy as np
+
+    i32 = lambda v: struct.pack("<i", v)  # noqa: E731
+    out = bytearray(b"\x00" + struct.pack("<iiii", 1, -1, 1, 0))  # header, root 1
+    out += b"\x0c" + i32(2) + _lp("PaintDotNet.Data, Version=3.36.0.0")
+    classes = {}
+    next_id = [10]
+
+    def new_id():
+        next_id[0] += 1
+        return next_id[0]
+
+    def obj(name, members, values):
+        """One class instance: members (name, bin type, extra), values
+        already encoded in member order."""
+        oid = new_id()
+        if name in classes:
+            rec = b"\x01" + i32(oid) + i32(classes[name])
+        else:
+            classes[name] = oid
+            rec = b"\x05" + i32(oid) + _lp(name) + i32(len(members))
+            rec += b"".join(_lp(m) for m, _, _ in members)
+            rec += bytes(bt for _, bt, _ in members)
+            rec += b"".join(bytes([x]) for _, bt, x in members if bt == 0)
+            rec += i32(2)  # library
+        return rec + b"".join(values)
+
+    def string(s):
+        return b"\x06" + i32(new_id()) + _lp(s)
+
+    stride = width * 4 + stride_pad
+    payloads = []
+    items = []
+    for layer in layers:
+        props = obj("PaintDotNet.Layer+LayerProperties",
+                    [("name", 1, None), ("visible", 0, 1), ("opacity", 0, 2)],
+                    [string(layer["name"]), bytes([bool(layer.get("visible", True))]),
+                     bytes([int(layer.get("opacity", 255))])])
+        op = obj(f"PaintDotNet.UserBlendOps+{layer.get('blend', 'Normal')}BlendOp", [], [])
+        bprops = obj("PaintDotNet.BitmapLayer+BitmapLayerProperties",
+                     [("blendOp", 2, None)], [op])
+        rows = np.zeros((height, stride), np.uint8)
+        rows[:, :width * 4] = np.asarray(layer["pixels"], np.uint8)[..., [2, 1, 0, 3]].reshape(
+            height, width * 4)
+        payloads.append(rows.tobytes())
+        block = obj("PaintDotNet.MemoryBlock",
+                    [("length64", 0, 9), ("hasParent", 0, 1), ("deferred", 0, 1)],
+                    [struct.pack("<q", height * stride), b"\x00", b"\x01"])
+        surface = obj("PaintDotNet.Surface",
+                      [("width", 0, 8), ("height", 0, 8), ("stride", 0, 8), ("scan0", 2, None)],
+                      [i32(width), i32(height), i32(stride), block])
+        items.append(obj("PaintDotNet.BitmapLayer",
+                         [("Layer+properties", 2, None), ("properties", 2, None),
+                          ("surface", 2, None)], [props, bprops, surface]))
+    layer_list = b"\x10" + i32(new_id()) + i32(len(items)) + b"".join(items)
+    doc = (b"\x05" + i32(1) + _lp("PaintDotNet.Document") + i32(3)
+           + _lp("width") + _lp("height") + _lp("layers") + b"\x00\x00\x02"
+           + bytes([8, 8]) + i32(2) + i32(width) + i32(height) + layer_list)
+    out += doc + b"\x0b"
+    for raw in payloads:  # the deferred payloads, in MemoryBlock stream order
+        out += b"\x00" + struct.pack(">I", chunk)
+        for k in range(0, max(len(raw), 1), chunk):
+            z = gzip.compress(raw[k:k + chunk], compresslevel=level, mtime=0)
+            out += struct.pack(">II", k // chunk, len(z)) + z
+    xml = (f'<pdnImage width="{width}" height="{height}" layers="{len(layers)}" '
+           'savedWithVersion="3.36"><custom></custom></pdnImage>').encode()
+    return b"PDN3" + len(xml).to_bytes(3, "little") + xml + b"\x00\x01" + bytes(out)
+
+
 def _write_inputs(d, specs, seed):
     import numpy as np
     from PIL import Image
@@ -803,8 +972,8 @@ def _check_launched(tag, counts, names):
 
 
 def drive_main_paths(dev, gen, tmp):
-    """The main paths (headline, spatial, layered, effects) and K-pass's
-    entry call, each with launch counts from 0.  Returns each phase's launch
+    """The main paths (headline, spatial, layered, effects, inputs) and
+    K-pass's entry call, each with launch counts from 0.  Returns each phase's launch
     counts, by phase."""
     import torch
 
@@ -846,9 +1015,15 @@ def drive_main_paths(dev, gen, tmp):
     _check_launched("effects", effects, ("gaussian_blur_fused", "gather_bilinear_u8",
                                          "composite_stack_kernel"))
 
+    _reset_counts()
+    drive_inputs_path(dev, tmp)
+    torch.cuda.synchronize()
+    inputs = _counts()
+    _check_launched("inputs", inputs, ("gaussian_blur_fused", "composite_stack_kernel"))
+
     entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
     return {"headline": headline, "spatial": spatial, "layered": layered,
-            "effects": effects, "gaussian_blur_pallas entry call": entry}
+            "effects": effects, "inputs": inputs, "gaussian_blur_pallas entry call": entry}
 
 
 def drive_blur_pass_entry(dev, png):
@@ -1124,6 +1299,382 @@ def drive_resized_document(dev, tmp):
     if out.shape != (1200, 2000, 4) or not np.array_equal(out, want):
         raise CheckFailed("resized document: r0.png differs from the plain route")
     print("  ok  resized document: 2000x1200 PNG equals the plain route's flatten")
+
+
+# ---------------------------------------------------------------------------
+# The inputs path: 16-bit PNG and TIFF, .pdn and .pfe text documents,
+# --animate and --trace-dir
+# ---------------------------------------------------------------------------
+
+# the text document's caption: an outline and a shadow of blur radius 6
+TEXT_SHADOW_BLUR = 6.0
+PDN_BLENDS = ("Normal", "Multiply", "Screen", "Overlay", "Additive", "Difference")
+
+
+def _ramp(rng, h, w, ch, scale, k):
+    """Smooth ramps plus noise in [0, scale], f32: the content of a scan or
+    a render, which compresses as such files do."""
+    import numpy as np
+
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
+    c = np.arange(ch, dtype=np.float32)[None, None, :]
+    v = np.sin(np.float32(6.0) * xx + np.float32(4.0) * yy * (np.float32(1.0) + np.float32(0.3) * c)
+               + np.float32(k) + c)
+    v *= np.float32(0.45 * scale)
+    v += np.float32(0.5 * scale)
+    v += rng.integers(0, max(scale // 64, 1), (h, w, ch), dtype=np.uint16)
+    return np.clip(v, 0, scale, out=v)
+
+
+def _input_files(root, seed=41):
+    """The inputs path's files, written from `seed`: two 16-bit RGBA 4K PNGs
+    whose rows cycle PNG filters 0-4, a 16-bit 4K TIFF with deflate, a
+    16-bit 512x512 TIFF with LZW (the pure-Python LZW decode is seconds a
+    megabyte), a six-layer 4K .pdn and a 4K .pfe with a raster layer and a
+    text layer (outline, and a shadow of blur radius TEXT_SHADOW_BLUR); and
+    for --animate four 8-bit 4K PNGs and three 256x256 ones."""
+    import numpy as np
+    from PIL import Image
+
+    from paintfe_tpu_torch.core.canvas import Canvas, Layer
+    from paintfe_tpu_torch.io.deep_export import write_tiff16
+    from paintfe_tpu_torch.io.pfe import save_pfe
+    from paintfe_tpu_torch.ops import text_layer as tl
+
+    rng = np.random.default_rng(seed)
+    h, w = UHD
+    (root / "in").mkdir(parents=True)
+    (root / "anim").mkdir()
+    (root / "gif").mkdir()
+    t0 = time.perf_counter()
+    for k in range(2):
+        px = _ramp(rng, h, w, 4, 65535, k).astype(np.uint16)
+        px[:128, :, 3] = 0
+        (root / "in" / f"p{k}.png").write_bytes(png16_bytes(px))
+    write_tiff16(root / "in" / "t0.tif", w, h, _ramp(rng, h, w, 4, 65535, 2).astype(np.uint16),
+                 "deflate")
+    write_tiff16(root / "in" / "t1.tif", 512, 512,
+                 _ramp(rng, 512, 512, 4, 65535, 3).astype(np.uint16), "lzw")
+    layers = []
+    for k, blend in enumerate(PDN_BLENDS):
+        px = _ramp(rng, h, w, 4, 255, 4 + k).astype(np.uint8)
+        if k == 0:
+            px[..., 3] = 255
+        layers.append(dict(name=f"layer {k}", pixels=px, blend=blend, visible=k != 4,
+                           opacity=255 - 20 * k))
+    (root / "in" / "d0.pdn").write_bytes(pdn_bytes(layers, w, h))
+    doc = Canvas.new(w, h)
+    doc.layers[0].pixels = _ramp(rng, h, w, 4, 255, 11).astype(np.uint8)
+    doc.layers[0].pixels[..., 3] = 255
+    text = Layer.new("caption", w, h)
+    text.content = "text"
+    text.text_data = tl.make_text_layer_data("Inputs path\nat 3840x2160", 200, 300, size=260,
+                                             color=(250, 245, 235, 255))
+    text.text_data.effects.outline = tl.OutlineEffect((20, 20, 120, 255), 4.0)
+    text.text_data.effects.shadow = tl.ShadowEffect((0, 0, 0, 170), 14.0, 12.0,
+                                                    TEXT_SHADOW_BLUR, 2.0)
+    doc.layers.append(text)
+    save_pfe(doc, str(root / "in" / "x0.pfe"))
+    for k in range(4):
+        Image.fromarray(_ramp(rng, h, w, 4, 255, 20 + k).astype(np.uint8), "RGBA").save(
+            root / "anim" / f"a{k}.png", compress_level=1)
+    for k in range(3):
+        Image.fromarray(_ramp(rng, 256, 256, 4, 255, 30 + k).astype(np.uint8), "RGBA").save(
+            root / "gif" / f"g{k}.png")
+    print(f"  inputs: wrote 2 16-bit PNGs, 2 16-bit TIFFs, a .pdn, a text .pfe "
+          f"(3840x2160 but t1.tif 512x512) and the --animate frames "
+          f"({time.perf_counter() - t0:.3f} s)")
+
+
+def _same_files(tag, got_dir, want_dir):
+    """Every file of want_dir (the CPU run) is in got_dir with its bytes."""
+    names = sorted(p.name for p in want_dir.iterdir())
+    if sorted(p.name for p in got_dir.iterdir()) != names or not names:
+        raise CheckFailed(f"{tag}: the card's outputs {sorted(p.name for p in got_dir.iterdir())}"
+                          f" differ from the CPU run's {names}")
+    for name in names:
+        if (got_dir / name).read_bytes() != (want_dir / name).read_bytes():
+            raise CheckFailed(f"{tag}: {name} differs from the CPU run's bytes")
+    return names
+
+
+def _background_cli(runs):
+    """Run each argv of `runs` ((tag, argv) pairs) through the CLI in a
+    process of its own, two processes at a time, on threads; returns one
+    future of (exit code, seconds) a run, in order.  The processes take 3
+    CPU threads each (the card's runs go on beside them); a future is done
+    when its process has ended."""
+    import concurrent.futures
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="3")
+    here = pathlib.Path(__file__).resolve().parent
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(here), env.get("PYTHONPATH")]))
+
+    def go(tag, argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "paintfe_tpu_torch.cli", *argv],
+                              cwd=here, env=env, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(f"  inputs {tag} --device cpu: rc {proc.returncode}\n{proc.stderr[-2000:]}")
+        return proc.returncode, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    futures = [pool.submit(go, tag, argv) for tag, argv in runs]
+    pool.shutdown(wait=False)
+    return futures
+
+
+def _trace_kernel_names(d):
+    names = set()
+    for f in d.glob("*.json"):
+        for e in json.loads(f.read_text()).get("traceEvents", []):
+            if e.get("cat") == "kernel":
+                names.add(e.get("name", ""))
+    return names
+
+
+def drive_inputs_path(dev, tmp):
+    """The inputs path at 3840x2160: the headline script over 16-bit PNGs
+    (rows of every PNG filter), 16-bit TIFFs, a six-layer .pdn and a .pfe
+    with a text layer, through the serial CLI (-f png, and -f tiff on the
+    PNGs) and --shard (both); --animate to APNG over four 4K PNGs and the
+    .pdn, serially and under --shard, and to GIF at 256x256; one serial run
+    under --trace-dir.  Every file of a CLI run must equal the same run's
+    with --device cpu, byte for byte; K-blur and K-composite launch exactly
+    as often as the path needs.  The files stay under tmp / "inputs"."""
+    from paintfe_tpu_torch import cli
+
+    root = tmp / "inputs"
+    _input_files(root)
+    (root / "fx.rhai").write_text(HEADLINE)
+    ins = root / "in"
+    script = ["-s", str(root / "fx.rhai")]
+    deep_pngs = [str(ins / "p0.png"), str(ins / "p1.png")]
+    everything = [str(ins / "*")]
+    # tag: (inputs, extra arguments, output, K-blur and K-composite launches on
+    # the card).  Serially: one K-blur a script run and one for the text
+    # shadow; one K-composite a flatten (.pdn, text document: one raster run
+    # each); the deep inputs export their exact 16-bit payload, no flatten.
+    # --shard: one K-blur a shape bucket (p0, p1, t0 at 4K; t1 at 512), the
+    # documents on the serial canvas path.
+    runs = {
+        "serial png": (everything, ["-f", "png", "--profile"], "png", (7, 2)),
+        "serial tiff": (deep_pngs, ["-f", "tiff"], "tiff", (2, 0)),
+        "shard png": (everything, ["-f", "png", "--shard"], "shard_png", (5, 2)),
+        "shard tiff": (deep_pngs, ["-f", "tiff", "--shard"], "shard_tiff", (1, 0)),
+    }
+    # the same runs with --device cpu, in processes of their own beside the
+    # card's runs here; their files are compared at the end of the phase
+    cpu = _background_cli([(tag, ["-i", *inputs, *script, *extra, "--output-dir",
+                                  str(root / f"cpu_{out}"), "--device", "cpu"])
+                           for tag, (inputs, extra, out, _) in runs.items()])
+    try:
+        for tag, (inputs, extra, out, (n_blur, n_comp)) in runs.items():
+            c0 = _counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", *inputs, *script, *extra, "--output-dir",
+                           str(root / f"out_{out}"), "--device", "cuda"])
+            t1 = time.perf_counter()
+            c1 = _counts()
+            got = (c1["gaussian_blur_fused"] - c0["gaussian_blur_fused"],
+                   c1["composite_stack_kernel"] - c0["composite_stack_kernel"])
+            print(f"  inputs {tag}: rc {rc} ({t1 - t0:.3f} s on the card); K-blur {got[0]}, "
+                  f"K-composite {got[1]} launches")
+            if rc != 0:
+                raise CheckFailed(f"inputs {tag}: CLI exit code {rc}")
+            if got != (n_blur, n_comp):
+                raise CheckFailed(f"inputs {tag}: launched K-blur {got[0]} and K-composite "
+                                  f"{got[1]} times, expected {n_blur} and {n_comp}")
+        for name in ("p0.png", "t0.png"):  # the deep payload survived, serially
+            if (root / "out_png" / name).read_bytes()[24] != 16:
+                raise CheckFailed(f"inputs: {name} was not written as a 16-bit PNG")
+        _drive_animate_and_trace(root, script)
+    finally:
+        cpu_results = [f.result() for f in cpu]
+    for (tag, (_, _, out, _)), (rc_cpu, seconds) in zip(runs.items(), cpu_results):
+        if rc_cpu != 0:
+            raise CheckFailed(f"inputs {tag}: the --device cpu run's exit code {rc_cpu}")
+        names = _same_files(f"inputs {tag}", root / f"out_{out}", root / f"cpu_{out}")
+        print(f"  ok  inputs {tag}: {len(names)} files equal the --device cpu run's bytes "
+              f"(that run {seconds:.3f} s, beside the card's)")
+
+
+def _drive_animate_and_trace(root, script):
+    """--animate to APNG over four 4K PNGs and the .pdn, serially (one
+    K-blur a frame, one K-composite for the .pdn) and under --shard (one
+    K-blur for the 4K bucket, one for the .pdn), equal files; GIF at
+    256x256 both ways; then one serial run of the text document under
+    --trace-dir, whose trace must name K-blur's and K-composite's
+    kernels."""
+    from paintfe_tpu_torch import cli
+
+    ins = root / "in"
+    anim_in = [str(root / "anim" / "*.png"), str(ins / "d0.pdn")]
+    gif_in = [str(root / "gif" / "*.png")]
+    animations = {"apng serial": (anim_in, [], "a.png", (5, 1)),
+                  "apng shard": (anim_in, ["--shard"], "a_shard.png", (2, 1)),
+                  "gif serial": (gif_in, [], "g.gif", (3, 0)),
+                  "gif shard": (gif_in, ["--shard"], "g_shard.gif", (1, 0))}
+    for tag, (inputs, extra, out, (n_blur, n_comp)) in animations.items():
+        c0 = _counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["-i", *inputs, *script, "--animate", str(root / out), "--fps", "8",
+                       "--device", "cuda", *extra])
+        t1 = time.perf_counter()
+        c1 = _counts()
+        got = (c1["gaussian_blur_fused"] - c0["gaussian_blur_fused"],
+               c1["composite_stack_kernel"] - c0["composite_stack_kernel"])
+        print(f"  inputs --animate {tag}: rc {rc} ({t1 - t0:.3f} s); K-blur {got[0]}, "
+              f"K-composite {got[1]} launches")
+        if rc != 0:
+            raise CheckFailed(f"inputs --animate {tag}: CLI exit code {rc}")
+        if got != (n_blur, n_comp):
+            raise CheckFailed(f"inputs --animate {tag}: launched K-blur {got[0]} and "
+                              f"K-composite {got[1]} times, expected {n_blur} and {n_comp}")
+    from paintfe_tpu_torch.io.codecs import load_frames
+
+    for serial, shard, n in (("a.png", "a_shard.png", 5), ("g.gif", "g_shard.gif", 3)):
+        frames, _ = load_frames(root / serial)
+        if len(frames) != n or (root / serial).read_bytes() != (root / shard).read_bytes():
+            raise CheckFailed(f"inputs --animate: {shard} differs from {serial} "
+                              f"({len(frames)} frames, expected {n})")
+    print("  ok  inputs --animate: APNG (5 frames) and GIF (3 frames) equal under --shard "
+          "and serially")
+
+    # --trace-dir: the text document, serially
+    c0 = _counts()
+    rc = cli.main(["-i", str(ins / "x0.pfe"), *script, "--output-dir", str(root / "out_trace"),
+                   "--trace-dir", str(root / "trace"), "--device", "cuda"])
+    kernels = _trace_kernel_names(root / "trace")
+    c1 = _counts()
+    print(f"  inputs --trace-dir: rc {rc}; {len(kernels)} kernel names in the trace")
+    if rc != 0 or not any("blur_tiled_kernel" in k for k in kernels) or not any(
+            "composite_kernel" in k for k in kernels):
+        raise CheckFailed(f"inputs --trace-dir: rc {rc}, the trace names no K-blur or no "
+                          f"K-composite kernel: {sorted(kernels)[:12]}")
+    if (c1["gaussian_blur_fused"] - c0["gaussian_blur_fused"],
+            c1["composite_stack_kernel"] - c0["composite_stack_kernel"]) != (2, 1):
+        raise CheckFailed("inputs --trace-dir: expected 2 K-blur and 1 K-composite launches")
+    print("  ok  inputs --trace-dir: the trace names blur_tiled_kernel and composite_kernel")
+
+
+def time_input_stages(dev, root, card):
+    """The inputs path's stages on one input each, timed alone: the 16-bit
+    PNG load (zlib, then the defilter in C++, and the pure-Python defilter
+    on a tenth of the rows), the .pdn load (NRBF graph, gzip payloads) and
+    its flatten on the card, the text rasterise (glyphs, outline, shadow on
+    the card), and the 16-bit PNG and TIFF encodes."""
+    import struct
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from paintfe_tpu_torch.io import deep_export, pdn
+    from paintfe_tpu_torch.io.nrbf import NrbfReader
+    from paintfe_tpu_torch.io.pfe import load_pfe
+
+    ins = root / "in"
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    blob = (ins / "p0.png").read_bytes()
+    pos, idat = 8, bytearray()
+    while pos < len(blob):
+        (n,) = struct.unpack(">I", blob[pos:pos + 4])
+        if blob[pos + 4:pos + 8] == b"IDAT":
+            idat += blob[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    h, w = UHD
+    stride = w * 8
+    raw, zlib_ms = wall(lambda: zlib.decompress(bytes(idat)))
+    _, native_ms = wall(lambda: deep_export.png_defilter(raw, h, stride, 8))
+    rows = h // 10
+    _, plain_ms = wall(lambda: deep_export.png_defilter_plain(raw[:rows * (stride + 1)], rows,
+                                                              stride, 8))
+    _, png_load_ms = wall(lambda: deep_export.load_deep_image(ins / "p0.png"))
+    _, tiff_load_ms = wall(lambda: deep_export.load_deep_image(ins / "t0.tif"))
+    data = (ins / "d0.pdn").read_bytes()
+    hlen = data[4] | data[5] << 8 | data[6] << 16
+    reader, nrbf_ms = wall(lambda: NrbfReader(data, 7 + hlen + 2).parse())
+    blocks = [o for o in reader.find_instances("MemoryBlock") if o.get("deferred")]
+
+    def gunzip():
+        at = reader.end_pos
+        for b in blocks:
+            _, at = pdn._read_deferred(data, at, int(b.get("length64")))
+
+    _, gzip_ms = wall(gunzip)
+    doc, pdn_ms = wall(lambda: pdn.load_pdn(ins / "d0.pdn"))
+    _, flatten_ms = wall(lambda: doc.composite(device=dev))
+    text_doc = load_pfe(str(ins / "x0.pfe"))
+    td = text_doc.layers[1].text_data
+    _, text_ms = wall(lambda: td.rasterize(w, h, dev))
+    td.mark_dirty()
+    _, text_cpu_ms = wall(lambda: td.rasterize(w, h, "cpu"))
+    px = np.zeros((h, w, 4), np.uint16)
+    _, png16_ms = wall(lambda: deep_export.write_png16(root / "enc.png", w, h, px))
+    _, tiff16_ms = wall(lambda: deep_export.write_tiff16(root / "enc.tif", w, h, px, "none"))
+    print(f"inputs path stages, one 3840x2160 input each, wall [card: {card}]:")
+    print(f"  16-bit PNG load {png_load_ms:.1f} ms: zlib {zlib_ms:.1f} ms, defilter in C++ "
+          f"{native_ms:.1f} ms, pure-Python defilter {plain_ms:.1f} ms for {rows} of {h} rows "
+          f"(rows of filters 0-4 in turn)")
+    print(f"  16-bit TIFF (deflate) load {tiff_load_ms:.1f} ms")
+    print(f"  .pdn (6 layers) load {pdn_ms:.1f} ms: NRBF graph {nrbf_ms:.1f} ms, gzip payloads "
+          f"{gzip_ms:.1f} ms; flatten on the card {flatten_ms:.1f} ms")
+    print(f"  text rasterise {text_ms:.1f} ms with its effects on the card, {text_cpu_ms:.1f} ms "
+          f"with them on the CPU")
+    print(f"  encode: 16-bit PNG {png16_ms:.1f} ms, 16-bit TIFF (none) {tiff16_ms:.1f} ms")
+
+
+def check_streams(dev, rounds=20):
+    """Two execute_script_async workers at once, each under its own CUDA
+    stream, blurring at different sigmas around a twist, for `rounds`
+    rounds at 1920x1080: every result must equal the same script through
+    the plain versions on the card (K-blur's constant taps are rewritten
+    between launches on both streams)."""
+    import numpy as np
+    import torch
+
+    from paintfe_tpu_torch.scripting import execute_script_async, execute_script_sync
+
+    scripts = ("apply_blur(1.0); apply_twist(30.0); apply_blur(4.0);",
+               "apply_blur(6.0); apply_twist(-45.0); apply_blur(0.5);")
+    h, w = FHD
+    img = np.random.default_rng(17).integers(0, 256, (h, w, 4), np.uint8)
+    with _plain_kernels():
+        want = [execute_script_sync(s, img, w, h, device=dev)[0] for s in scripts]
+    streams = [torch.cuda.Stream(dev) for _ in scripts]
+    c0 = _counts()
+    t0 = time.perf_counter()
+    for k in range(rounds):
+        runs = [execute_script_async(s, img, w, h, device=dev, stream=st)
+                for s, st in zip(scripts, streams)]
+        for (thread, q), expected, s in zip(runs, want, scripts):
+            thread.join(300)
+            msgs = []
+            while not q.empty():
+                msgs.append(q.get())
+            if not msgs or msgs[-1].kind != "completed":
+                raise CheckFailed(f"streams: round {k}: the worker of {s!r} ended with "
+                                  f"{msgs[-1].payload if msgs else 'no message'}")
+            if not np.array_equal(msgs[-1].payload[0], expected):
+                raise CheckFailed(f"streams: round {k}: the worker of {s!r} on its own "
+                                  "stream differs from the plain versions")
+    c1 = _counts()
+    blurs = c1["gaussian_blur_fused"] - c0["gaussian_blur_fused"]
+    if blurs != 4 * rounds:
+        raise CheckFailed(f"streams: {blurs} K-blur launches, expected {4 * rounds}")
+    print(f"  ok  streams: two async workers on two CUDA streams, {rounds} rounds at "
+          f"1920x1080 ({time.perf_counter() - t0:.3f} s, {blurs} K-blur launches), every "
+          "result equals the plain versions")
 
 
 def check_effects(dev, gen):
@@ -1744,9 +2295,11 @@ def main() -> int:
         check_blur_pass(dev, gen, errs["gaussian_blur_pass"])
         torch.cuda.empty_cache()
         check_effects(dev, gen)
+        check_streams(dev)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             phases = drive_main_paths(dev, gen, pathlib.Path(tmp))
+            time_input_stages(dev, pathlib.Path(tmp) / "inputs", card)
         times = time_kernels(dev, gen, card)
         time_effects(dev, gen, card)
     finally:

@@ -8,11 +8,15 @@ keep-going semantics.  `--device {cuda,cpu}` picks the torch device the
 device-side ops and the flatten run on; `cuda` with no card is an error,
 never a silent run on the CPU.  `--shard` runs the traced op chain over
 shape-bucketed batches on that device (parallel/batch.py); layered
-documents take the serial canvas path there too.
+documents (.pfe, .pdn) take the serial canvas path there too.  Inputs are
+raster images, 16-bit PNGs and 16/32-bit TIFFs (their deep payload kept
+and exported), .pfe documents (text layers rasterized before the flatten)
+and Paint.NET .pdn documents.  `--animate OUT` writes every processed
+input as one frame of a GIF, APNG or WebP animation (with --shard too);
+`--trace-dir DIR` writes a torch.profiler trace of the serial run.
 
-Not yet ported (each reports so per input, rc 1): .pdn documents, text
-layers in .pfe documents, 16-bit inputs, resize canvas ops, --animate and
---trace-dir, and a multi-host launch (PAINTFE_COORDINATOR).
+Not yet ported: RAW camera inputs (the codec reports them, rc 1 per input)
+and a multi-host launch (PAINTFE_COORDINATOR, rc 1).
 
     python -m paintfe_tpu_torch.cli -i 'docs/*.pfe' -s fx.rhai \\
         --output-dir out -f png --device cuda
@@ -32,12 +36,14 @@ import numpy as np
 import torch
 
 from paintfe_tpu_torch.core.canvas import Canvas, canonicalize_tiles
-from paintfe_tpu_torch.errors import NotYetPorted
 from paintfe_tpu_torch.io import codecs, deep_export, pfe
+from paintfe_tpu_torch.io.nrbf import NrbfError
+from paintfe_tpu_torch.io.pdn import PdnError
 from paintfe_tpu_torch.scripting import ScriptError, apply_canvas_ops, execute_script_sync
 
-# per-file keep-going: every error class an input file can produce
-_INPUT_ERRORS = (codecs.CodecError, pfe.PfeError, NotYetPorted, ScriptError,
+# per-file keep-going: every error class an input file can produce (a class
+# missing here crashes the whole batch)
+_INPUT_ERRORS = (codecs.CodecError, pfe.PfeError, PdnError, NrbfError, ScriptError,
                  OSError, ValueError)
 
 
@@ -68,12 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="print per-stage timings (load/script/flatten/encode)")
     p.add_argument("--trace-dir", metavar="DIR",
-                   help="write a profiler trace of the run to DIR (not yet ported)")
+                   help="write a torch.profiler trace of the run to DIR")
     p.add_argument("--shard", action="store_true",
                    help="run the batch as shape-bucketed batches on the device")
     p.add_argument("--animate", metavar="OUT",
-                   help="combine all processed inputs into one animation "
-                        "(not yet ported)")
+                   help="combine all processed inputs into one animated "
+                        "GIF/APNG/WebP at OUT (each input = one frame)")
     p.add_argument("--fps", type=float, default=10.0,
                    help="frame rate for --animate (default 10)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -130,45 +136,25 @@ def build_output_path(input_path: pathlib.Path, output: Optional[str],
     return candidate
 
 
-def _is_deep(path: pathlib.Path) -> bool:
-    """16-bit PNG or 16/32-bit TIFF: the JAX package keeps their deep
-    payload (io/deep_export.py), which the port does not yet."""
-    suffix = path.suffix.lower()
-    try:
-        if suffix == ".png":
-            with open(path, "rb") as fh:
-                head = fh.read(33)
-            return len(head) >= 33 and head[24] == 16  # IHDR bit depth
-        if suffix in (".tif", ".tiff"):
-            from PIL import Image
-
-            with Image.open(path) as im:
-                bits = im.tag_v2.get(258, (8,))
-            return max(bits if isinstance(bits, tuple) else (bits,)) > 8
-    except (OSError, SyntaxError, ValueError):
-        return False  # undecodable: the codec reports it
-    return False
-
-
-def load_image(path) -> np.ndarray:
-    """Decode one single-layer raster input as RGBA u8 [H, W, 4]."""
-    path = pathlib.Path(path)
-    if _is_deep(path):
-        raise NotYetPorted(f"16-bit input '{path}' is not yet ported to "
-                           "paintfe_tpu_torch")
-    return codecs.load_image(path)
-
-
 def load_canvas(path: pathlib.Path) -> Canvas:
-    """One input as a document: a .pfe as its layers, a raster image as a
-    one-layer canvas."""
+    """One input as a document: a .pfe or .pdn as its layers, a 16-bit PNG
+    or 16/32-bit TIFF as one layer that keeps its deep payload, any other
+    raster image as a one-layer canvas."""
     path = pathlib.Path(path)
     if path.suffix.lower() == ".pfe":
         return pfe.load_pfe(str(path))
     if path.suffix.lower() == ".pdn":
-        raise NotYetPorted(f".pdn input '{path}' is not yet ported to "
-                           "paintfe_tpu_torch")
-    return Canvas.from_image(load_image(path))
+        from paintfe_tpu_torch.io import pdn
+
+        return pdn.load_pdn(str(path))
+    deep = deep_export.load_deep_image(path)
+    if deep is not None:
+        preview, pixel_format, buf = deep
+        canvas = Canvas.from_image(preview)
+        canvas.layers[0].pixel_format = pixel_format
+        canvas.layers[0].deep_pixels = buf
+        return canvas
+    return Canvas.from_image(codecs.load_image(path))
 
 
 def _commit_script_result(canvas, idx, result, new_w, new_h, canvas_ops):
@@ -225,6 +211,12 @@ def run_one(input_path: pathlib.Path, output_path: pathlib.Path,
         pfe.save_pfe(canvas, str(output_path))
         return
 
+    # dirty text layers rasterize before any flatten or encode (cli.rs:275
+    # state.ensure_all_text_layers_rasterized); untimed, as in the JAX CLI
+    from paintfe_tpu_torch.ops.text_layer import ensure_text_layers_rasterized
+
+    ensure_text_layers_rasterized(canvas, device)
+
     if flatten and (len(canvas.layers) > 1 or deep_export.needs_deep_export(canvas)):
         # depth-aware export (io.rs:1413-1453, :1588-1631); plain
         # single-layer documents skip the compositor (cli.rs:282-293)
@@ -241,11 +233,10 @@ def run_one(input_path: pathlib.Path, output_path: pathlib.Path,
                           tiff_compression=tiff_compression)
 
 
-def _unported_option(args) -> Optional[str]:
-    if args.animate:
-        return "--animate"
-    if args.trace_dir:
-        return "--trace-dir"
+def _unported_option() -> Optional[str]:
+    """What of this launch the port does not run yet, or None."""
+    if os.environ.get("PAINTFE_COORDINATOR"):
+        return "multi-host batch (PAINTFE_COORDINATOR)"
     return None
 
 
@@ -281,50 +272,107 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.output_dir:
         pathlib.Path(args.output_dir).mkdir(parents=True, exist_ok=True)
 
-    unported = _unported_option(args)
+    if args.animate:
+        return _run_animate(inputs, args, script_source)
+    unported = _unported_option()
     if unported:
-        for input_path in inputs:
-            print(f"  error: {input_path}: {unported} is not yet ported to "
-                  "paintfe_tpu_torch", file=sys.stderr)
-        return 1
-
-    if os.environ.get("PAINTFE_COORDINATOR"):
-        print("error: multi-host batch (PAINTFE_COORDINATOR) is not yet ported "
-              "to paintfe_tpu_torch", file=sys.stderr)
+        print(f"error: {unported} is not yet ported to paintfe_tpu_torch",
+              file=sys.stderr)
         return 1
     if args.shard:
         from paintfe_tpu_torch.parallel.batch import run_sharded_batch
 
         return run_sharded_batch(inputs, args, fmt, script_source)
 
-    from paintfe_tpu_torch.utils.profiling import StageTimer
+    from paintfe_tpu_torch.utils.profiling import StageTimer, trace
 
     total = len(inputs)
     multi = total > 1
     any_failure = False
-    for i, input_path in enumerate(inputs):
-        if multi or args.verbose:
-            print(f"[{i + 1}/{total}] {input_path}")
-        t0 = time.time()
-        output_path = build_output_path(input_path, args.output,
-                                        args.output_dir, fmt)
-        timer = StageTimer(args.device) if args.profile else None
-        try:
-            run_one(
-                input_path, output_path, script_source, fmt, args.quality,
-                not args.webp_lossy, args.tiff_compression, args.flatten,
-                args.verbose, timer=timer, device=args.device,
-            )
-            if args.verbose or multi:
-                print(f"  -> {output_path} ({(time.time() - t0) * 1000:.0f}ms)")
-            if timer is not None:
-                print(timer.report())
-        except _INPUT_ERRORS as e:
-            msg = e
-            if isinstance(e, ScriptError):
-                msg = f"script error: {e}"
-            print(f"  error: {msg}", file=sys.stderr)
-            any_failure = True
+    # `with`: an exception escaping the loop still finalizes the trace
+    with trace(args.trace_dir):
+        for i, input_path in enumerate(inputs):
+            if multi or args.verbose:
+                print(f"[{i + 1}/{total}] {input_path}")
+            t0 = time.time()
+            output_path = build_output_path(input_path, args.output,
+                                            args.output_dir, fmt)
+            timer = StageTimer(args.device) if args.profile else None
+            try:
+                run_one(
+                    input_path, output_path, script_source, fmt, args.quality,
+                    not args.webp_lossy, args.tiff_compression, args.flatten,
+                    args.verbose, timer=timer, device=args.device,
+                )
+                if args.verbose or multi:
+                    print(f"  -> {output_path} ({(time.time() - t0) * 1000:.0f}ms)")
+                if timer is not None:
+                    print(timer.report())
+            except _INPUT_ERRORS as e:
+                msg = e
+                if isinstance(e, ScriptError):
+                    msg = f"script error: {e}"
+                print(f"  error: {msg}", file=sys.stderr)
+                any_failure = True
+    return 1 if any_failure else 0
+
+
+def _compute_frame(input_path, script_source, device="cuda") -> np.ndarray:
+    """One input as its processed, flattened frame (the --animate unit of
+    work; may raise any of _INPUT_ERRORS)."""
+    canvas = load_canvas(input_path)
+    if script_source is not None:
+        idx = canvas.active_layer_index
+        result, new_w, new_h, _console, canvas_ops = execute_script_sync(
+            script_source, canvas.layers[idx].pixels, canvas.width, canvas.height,
+            canvas.selection, device=device)
+        # the commit path of run_one (canonicalized tiles, deep sync)
+        _commit_script_result(canvas, idx, result, new_w, new_h, canvas_ops)
+    from paintfe_tpu_torch.ops.text_layer import ensure_text_layers_rasterized
+
+    ensure_text_layers_rasterized(canvas, device)
+    return (canvas.composite(device=device) if len(canvas.layers) > 1
+            else canvas.active_layer.pixels)
+
+
+_ANIMATION_FORMATS = {"gif": "gif", "png": "apng", "apng": "apng", "webp": "webp"}
+
+
+def _run_animate(inputs, args, script_source) -> int:
+    """Process every input, then encode all frames as one animation (each
+    input one frame).  With --shard the frames come from the bucketed
+    batches (parallel/batch.run_sharded_frames), byte-equal to this serial
+    path and in input order.  A failed input drops its frame and makes the
+    exit code 1."""
+    ext = pathlib.Path(args.animate).suffix.lower().lstrip(".")
+    anim_fmt = _ANIMATION_FORMATS.get(ext)
+    if anim_fmt is None:
+        print(f"error: --animate needs a .gif/.png/.webp path, got '{ext}'",
+              file=sys.stderr)
+        return 1
+    if args.shard:
+        from paintfe_tpu_torch.parallel.batch import run_sharded_frames
+
+        frames, any_failure = run_sharded_frames(inputs, args, script_source)
+    else:
+        frames = []
+        any_failure = False
+        for input_path in inputs:
+            try:
+                frames.append(_compute_frame(input_path, script_source, args.device))
+            except _INPUT_ERRORS as e:
+                print(f"  error: {e}", file=sys.stderr)
+                any_failure = True
+    if not frames:
+        return 1
+    try:
+        codecs.save_animation(frames, args.animate, anim_fmt, fps=args.fps,
+                              quality=args.quality, webp_lossless=not args.webp_lossy)
+        if args.verbose:
+            print(f"  -> {args.animate} ({len(frames)} frames @ {args.fps} fps)")
+    except codecs.CodecError as e:
+        print(f"  error: {e}", file=sys.stderr)
+        return 1
     return 1 if any_failure else 0
 
 

@@ -71,7 +71,7 @@ class Layer:
     folder_id: Optional[int] = None
     content: str = "raster"  # raster | adjustment | text
     adjustment: Optional[Any] = None  # deep.AdjustmentLayerData
-    text_data: Optional[Any] = None  # text layers are not yet ported: always None
+    text_data: Optional[Any] = None  # ops.text_layer.TextLayerData
     pixel_format: Any = None  # deep.PixelFormat (None -> RGBA_U8)
     deep_pixels: Optional[Any] = None  # deep.DeepRgbaBuffer
     hdr_metadata: Optional[Any] = None  # deep.HdrMetadata
@@ -368,10 +368,12 @@ def canvas_from_document(doc) -> Canvas:
     """The port's Canvas from any object with the JAX package's Canvas
     fields (width, height, layers, folders, active_layer_index, selection,
     preview state), reading numpy arrays and plain values only: the
-    counterpart of parallel/pipeline.from_jax_ops.  A text layer that
-    carries text data raises NotYetPorted."""
+    counterpart of parallel/pipeline.from_jax_ops.  A text layer's text
+    data crosses as ops.text_layer's classes, through the JSON the .pfe
+    container carries (which reads dataclass fields and enum values
+    only)."""
     from paintfe_tpu_torch.core import deep
-    from paintfe_tpu_torch.errors import NotYetPorted
+    from paintfe_tpu_torch.ops.text_layer import text_data_from_json, text_data_to_json
 
     def adjustment(a):
         if a is None:
@@ -402,9 +404,7 @@ def canvas_from_document(doc) -> Canvas:
 
     layers = []
     for l in doc.layers:
-        if getattr(l, "text_data", None) is not None:
-            raise NotYetPorted(f"text layer '{l.name}' is not yet ported to "
-                               "paintfe_tpu_torch")
+        text = getattr(l, "text_data", None)
         fmt = getattr(l, "pixel_format", None)
         layers.append(Layer(
             name=str(l.name), pixels=_array(l.pixels, np.uint8), visible=bool(l.visible),
@@ -412,6 +412,7 @@ def canvas_from_document(doc) -> Canvas:
             mask=_array(l.mask, np.uint8), mask_enabled=bool(l.mask_enabled),
             folder_id=None if l.folder_id is None else int(l.folder_id),
             content=str(l.content), adjustment=adjustment(l.adjustment),
+            text_data=None if text is None else text_data_from_json(text_data_to_json(text)),
             pixel_format=None if fmt is None else deep.PixelFormat(_enum_value(fmt)),
             deep_pixels=deep_buffer(l.deep_pixels), hdr_metadata=hdr(l.hdr_metadata),
             source_metadata=meta(l.source_metadata)))

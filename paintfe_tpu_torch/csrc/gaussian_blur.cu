@@ -25,6 +25,8 @@
 // sums leave too little room for staged rows, and the split pair runs (an
 // H-pass kernel and a V-pass kernel over an f32 buffer in device memory),
 // with the same tap order.
+#include <mutex>
+
 #include "blur_tile.cuh"
 
 namespace pfe {
@@ -34,10 +36,17 @@ namespace pfe {
 // radii take the split kernels, which read their taps from device memory.
 constexpr int kMaxConstTaps = 512;
 
-// `static`: this translation unit's own table, set before each launch on
-// the launching stream (ROADMAP C7: right while every caller launches on
-// one stream).
+// `static`: this translation unit's own table, one per device and shared
+// by every stream, set before each launch on the launching stream.  A
+// rewrite must not land while a launch made earlier on another stream
+// still reads it: each launch records taps_read[device] after itself on its
+// stream, and the next rewrite, on whatever stream, waits for that event
+// first.  taps_mutex keeps one call's wait, rewrite, launch and record
+// together when host threads launch at once.
 static __constant__ float c_taps[kMaxConstTaps];
+constexpr int kMaxDevices = 64;
+static std::mutex taps_mutex;
+static cudaEvent_t taps_read[kMaxDevices] = {};
 
 struct ConstTaps {
   __device__ __forceinline__ float operator()(int k) const { return c_taps[k]; }
@@ -157,14 +166,24 @@ int pfe_blur_tiled(const void* src, void* dst, int B, int H, int W,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemcpyToSymbolAsync(c_taps, taps_host, nt * sizeof(float), 0,
-                                          cudaMemcpyHostToDevice, s);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> lock(taps_mutex);
+  cudaEvent_t& read = taps_read[dev];
+  e = read ? cudaStreamWaitEvent(s, read, 0)
+           : cudaEventCreateWithFlags(&read, cudaEventDisableTiming);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaMemcpyToSymbolAsync(c_taps, taps_host, nt * sizeof(float), 0,
+                              cudaMemcpyHostToDevice, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const uint32_t* in = static_cast<const uint32_t*>(src);
   uint32_t* out = static_cast<uint32_t*>(dst);
   e = q == 8 ? launch_tiled<8, 2>(in, out, B, H, W, r, nt, th, chunk, smem, s)
              : launch_tiled<4, 4>(in, out, B, H, W, r, nt, th, chunk, smem, s);
-  return static_cast<int>(e);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaEventRecord(read, s));
 }
 
 int pfe_blur_split(const void* src, void* tmp, void* dst, int B, int H, int W,

@@ -9,11 +9,17 @@ any U16 layer -> u16 = u8*257).  `encode_prepared_and_write` (:1588-1631)
 routes Rgba16 to 16-bit PNG/TIFF and RgbaF32 to float TIFF; everything else
 downconverts (u16 -> (v+128)/257, f32 -> Reinhard when any channel > 1).
 The composite runs on a torch device (Canvas.composite, K-composite on the
-card).  The read half (16-bit PNG/TIFF inputs) is not yet ported.
+card).
 
-The PNG and TIFF encoders are self-contained (PIL cannot write 16-bit
-RGBA): PNG bit depth 16 color type 6 big-endian, TIFF little-endian with
-none/LZW/deflate strips.
+The read half keeps a 16-bit PNG's or a 16/32-bit TIFF's deep payload
+(`load_deep_image`, io.rs:588-640): PIL reduces 16-bit RGBA to 8 bits, so
+`read_png16` and `read_tiff_deep` parse the files themselves.  The PNG and
+TIFF encoders are self-contained too (PIL cannot write 16-bit RGBA): PNG
+bit depth 16 color type 6 big-endian, TIFF little-endian with
+none/LZW/deflate strips.  The byte-serial loops, the PNG defilter and the
+LZW encoder, run in the port's C++ (native/bytecodec.cpp); their
+pure-Python versions (`png_defilter_plain`, `_lzw_encode_plain`) are the
+oracle the tests hold them to.
 """
 
 from __future__ import annotations
@@ -241,14 +247,122 @@ def write_png16(path, width: int, height: int, pixels: np.ndarray):
 
 
 # ---------------------------------------------------------------------------
-# TIFF writer (little-endian, single strip, none/LZW/deflate)
+# 16-bit PNG reader
+# ---------------------------------------------------------------------------
+
+
+def png_defilter_plain(raw: bytes, h: int, stride: int, bpp: int) -> bytes:
+    """PNG row-filter reconstruction (filters 0-4; an unknown filter byte
+    leaves its row as it is) of h rows of (1 filter byte + stride bytes),
+    in pure Python: the oracle of native/bytecodec.cpp's png_defilter."""
+    out = bytearray()
+    prev = bytes(stride)
+    for y in range(h):
+        f = raw[y * (stride + 1)]
+        line = bytearray(raw[y * (stride + 1) + 1:(y + 1) * (stride + 1)])
+        if f == 1:
+            for i in range(bpp, stride):
+                line[i] = (line[i] + line[i - bpp]) & 0xFF
+        elif f == 2:
+            for i in range(stride):
+                line[i] = (line[i] + prev[i]) & 0xFF
+        elif f == 3:
+            for i in range(stride):
+                a = line[i - bpp] if i >= bpp else 0
+                line[i] = (line[i] + ((a + prev[i]) >> 1)) & 0xFF
+        elif f == 4:
+            for i in range(stride):
+                a = line[i - bpp] if i >= bpp else 0
+                b = prev[i]
+                c = prev[i - bpp] if i >= bpp else 0
+                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                pr = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                line[i] = (line[i] + pr) & 0xFF
+        out += line
+        prev = bytes(line)
+    return bytes(out)
+
+
+def png_defilter(raw: bytes, h: int, stride: int, bpp: int) -> bytes:
+    """png_defilter_plain's bytes through native/bytecodec.cpp: foreign
+    16-bit PNGs use adaptive per-row filters 1-4, which the pure loop takes
+    minutes over at 3840x2160.  A filter byte the C++ refuses (outside 0-4)
+    takes the pure loop, as in the JAX package."""
+    import ctypes
+
+    from paintfe_tpu_torch import native
+
+    if len(raw) < h * (stride + 1):
+        raise ValueError(f"PNG image data holds {len(raw)} bytes, "
+                         f"{h} rows need {h * (stride + 1)}")
+    lib = native.load()
+    out = bytearray(h * stride)
+    rc = lib.png_defilter(
+        (ctypes.c_uint8 * len(raw)).from_buffer_copy(raw),
+        (ctypes.c_uint8 * len(out)).from_buffer(out), h, stride, bpp)
+    return bytes(out) if rc == 0 else png_defilter_plain(raw, h, stride, bpp)
+
+
+def read_png16(path) -> np.ndarray:
+    """A 16-bit RGB or RGBA PNG as u16 [H, W, 4] (RGB gets opaque alpha,
+    io.rs:606-617); Adam7-interlaced files are refused."""
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    if blob[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos = 8
+    idat = bytearray()
+    w = h = depth = ctype = None
+    while pos < len(blob):
+        (length,) = struct.unpack(">I", blob[pos:pos + 4])
+        tag = blob[pos + 4:pos + 8]
+        payload = blob[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", payload[:10])
+            if payload[12] != 0:
+                # Adam7 lays rows out in 7 passes; the sequential defilter
+                # would scramble pixels
+                raise ValueError("interlaced (Adam7) 16-bit PNGs are not supported")
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + length
+    if depth != 16 or ctype not in (2, 6):
+        raise ValueError(f"not RGB(A)16: depth={depth} ctype={ctype}")
+    channels = 4 if ctype == 6 else 3
+    stride = w * 2 * channels
+    rows = png_defilter(zlib.decompress(bytes(idat)), h, stride, 2 * channels)
+    arr = np.frombuffer(rows, ">u2").astype(np.uint16).reshape(h, w, channels)
+    if channels == 3:
+        arr = np.concatenate([arr, np.full((h, w, 1), 65535, np.uint16)], axis=-1)
+    return arr
+
+
+# ---------------------------------------------------------------------------
+# TIFF writer (little-endian, single strip, none/LZW/deflate) and reader
 # ---------------------------------------------------------------------------
 
 
 def _lzw_encode(data: bytes) -> bytes:
+    """_lzw_encode_plain's bytes through native/bytecodec.cpp."""
+    import ctypes
+
+    from paintfe_tpu_torch import native
+
+    lib = native.load()
+    cap = 2 * len(data) + 64
+    out = bytearray(cap)
+    n = lib.tiff_lzw_encode(
+        (ctypes.c_uint8 * len(data)).from_buffer_copy(data), len(data),
+        (ctypes.c_uint8 * cap).from_buffer(out), cap)
+    if n < 0:
+        raise MemoryError("tiff_lzw_encode: out of memory")
+    return bytes(out[:n])
+
+
+def _lzw_encode_plain(data: bytes) -> bytes:
     """TIFF-flavor LZW: MSB-first bit packing, Clear=256, EOI=257, 9->12 bit
-    codes with the TIFF 'early change' (width bumps one code early).
-    Pure Python: slow on large strips (the JAX package has a C++ path)."""
+    codes with the TIFF 'early change' (width bumps one code early), in
+    pure Python: the oracle of native/bytecodec.cpp's tiff_lzw_encode."""
     CLEAR, EOI = 256, 257
     out = bytearray()
     bitbuf = 0
@@ -262,6 +376,7 @@ def _lzw_encode(data: bytes) -> bytes:
         while bitcnt >= 8:
             bitcnt -= 8
             out.append((bitbuf >> bitcnt) & 0xFF)
+        bitbuf &= (1 << bitcnt) - 1  # keep only the unwritten bits
 
     table = {bytes([i]): i for i in range(256)}
     next_code = 258
@@ -365,6 +480,193 @@ def write_tiff_f32(path, width: int, height: int, pixels: np.ndarray):
     payload = np.ascontiguousarray(pixels, dtype="<f4").tobytes()
     _write_tiff(path, width, height, payload, bits=32, sample_format=3,
                 compression="none")
+
+
+def _lzw_decode(data: bytes, max_bytes: Optional[int] = None) -> bytes:
+    """Inverse of _lzw_encode (TIFF early-change variant).
+
+    `max_bytes` reproduces libtiff's contract: the decoder stops once the
+    expected strip size is produced and never reads further.  At the
+    early-change boundary (the final data code lands the table on exactly
+    2^width - 1 entries) the encoder's EOI is written at the old width, and
+    reading on would misparse it as a data code; a reader that knows the
+    strip size passes it."""
+    CLEAR, EOI = 256, 257
+    out = bytearray()
+    table = [bytes([i]) for i in range(256)] + [b"", b""]
+    width = 9
+    bitbuf = 0
+    bitcnt = 0
+    prev = None
+    i = 0
+    n = len(data)
+    while max_bytes is None or len(out) < max_bytes:
+        while bitcnt < width and i < n:
+            bitbuf = (bitbuf << 8) | data[i]
+            bitcnt += 8
+            i += 1
+        if bitcnt < width:
+            break
+        bitcnt -= width
+        code = (bitbuf >> bitcnt) & ((1 << width) - 1)
+        bitbuf &= (1 << bitcnt) - 1  # keep only the unread bits: linear, not quadratic
+        if code == EOI:
+            break
+        if code == CLEAR:
+            table = [bytes([j]) for j in range(256)] + [b"", b""]
+            width = 9
+            prev = None
+            continue
+        if prev is None:
+            entry = table[code]
+        elif code < len(table):
+            entry = table[code]
+            table.append(prev + entry[:1])
+        else:
+            entry = prev + prev[:1]
+            table.append(entry)
+        out += entry
+        prev = entry
+        # decoder grows one slot early (TIFF early change)
+        if len(table) == (1 << width) - 1 and width < 12:
+            width += 1
+    if max_bytes is not None:
+        return bytes(out[:max_bytes])
+    return bytes(out)
+
+
+# TIFF field type -> bytes a value
+_TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
+               11: 4, 12: 8}
+
+
+def _read_values(blob: bytes, end: str, typ: int, count: int, value_field: bytes):
+    """One IFD entry's values (the JAX package's io/raw.py _read_values):
+    inline when they fit the 4-byte field, else at its offset; None for an
+    unknown type."""
+    size = _TYPE_SIZES.get(typ)
+    if size is None:
+        return None
+    total = size * count
+    if total <= 4:
+        data = value_field[:total]
+    else:
+        (off,) = struct.unpack(end + "I", value_field)
+        data = blob[off:off + total]
+    if typ == 2:  # ASCII: NUL-terminated string
+        return [data.split(b"\0", 1)[0].decode("ascii", errors="replace")]
+    if typ in (1, 6, 7):
+        return list(data)
+    if typ == 3:
+        return list(struct.unpack(end + f"{count}H", data))
+    if typ == 8:
+        return list(struct.unpack(end + f"{count}h", data))
+    if typ in (4, 9):
+        return list(struct.unpack(end + f"{count}{'I' if typ == 4 else 'i'}", data))
+    if typ in (5, 10):
+        fmtc = "I" if typ == 5 else "i"
+        raw = struct.unpack(end + f"{2 * count}{fmtc}", data)
+        return [raw[2 * i] / raw[2 * i + 1] if raw[2 * i + 1] else 0.0
+                for i in range(count)]
+    if typ == 11:
+        return list(struct.unpack(end + f"{count}f", data))
+    return list(struct.unpack(end + f"{count}d", data))  # typ == 12
+
+
+def _parse_ifd(blob: bytes, end: str, off: int):
+    """The tags of the IFD at `off` ({tag: [values]}) and the next IFD's
+    offset."""
+    (n_tags,) = struct.unpack(end + "H", blob[off:off + 2])
+    tags = {}
+    for k in range(n_tags):
+        base = off + 2 + k * 12
+        tag, typ, count = struct.unpack(end + "HHI", blob[base:base + 8])
+        vals = _read_values(blob, end, typ, count, blob[base + 8:base + 12])
+        if vals is not None:
+            tags[tag] = vals
+    (nxt,) = struct.unpack(end + "I", blob[off + 2 + n_tags * 12:off + 2 + n_tags * 12 + 4])
+    return tags, nxt
+
+
+def read_tiff_deep(path) -> np.ndarray:
+    """An RGB(A) TIFF (chunky, none/LZW/deflate strips, either byte order)
+    as u8, u16 or f32 [H, W, 4]; RGB gets opaque alpha."""
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    if blob[:4] == b"II*\0":
+        end = "<"
+    elif blob[:4] == b"MM\0*":
+        end = ">"
+    else:
+        raise ValueError("not a TIFF")
+    (ifd_off,) = struct.unpack(end + "I", blob[4:8])
+    tags, _next = _parse_ifd(blob, end, ifd_off)
+    w = tags[256][0]
+    h = tags[257][0]
+    bits_all = tags[258]
+    bits = bits_all[0]
+    if any(b != bits for b in bits_all):
+        raise ValueError("mixed per-channel TIFF bit depths are not supported")
+    comp = tags.get(259, (1,))[0]
+    sample_fmt = tags.get(339, (1,))[0]
+    spp = tags.get(277, (4,))[0]
+    if tags.get(284, (1,))[0] != 1:
+        # PlanarConfiguration=2 stores channel-planar strips; reading it as
+        # chunky would scramble channels
+        raise ValueError("planar TIFF layout is not supported")
+    payload = b"".join(blob[o:o + c] for o, c in zip(tags[273], tags[279]))
+    expected = h * w * spp * (4 if (sample_fmt == 3 or bits == 32)
+                              else 2 if bits == 16 else 1)
+    if comp == 5:
+        payload = _lzw_decode(payload, expected)
+    elif comp == 8:
+        payload = zlib.decompress(payload)
+    elif comp != 1:
+        raise ValueError(f"unsupported TIFF compression {comp}")
+    if sample_fmt == 3:
+        arr = np.frombuffer(payload, end + "f4", count=h * w * spp).astype(f32)
+    elif bits == 16:
+        arr = np.frombuffer(payload, end + "u2", count=h * w * spp).astype(np.uint16)
+    else:
+        arr = np.frombuffer(payload, end + "u1", count=h * w * spp).astype(np.uint8)
+    arr = arr.reshape(h, w, spp)
+    if spp == 3:
+        opaque = (np.float32(1.0) if sample_fmt == 3 else
+                  np.uint16(65535) if bits == 16 else np.uint8(255))
+        arr = np.concatenate([arr, np.full((h, w, 1), opaque, arr.dtype)], axis=-1)
+    return arr
+
+
+def load_deep_image(path):
+    """(preview_rgba8, PixelFormat, DeepRgbaBuffer) for a 16-bit PNG or a
+    16/32-bit TIFF, else None (the file loads through the u8 codec).
+    Mirrors dynamic_image_to_rgba_and_deep (io.rs:588-640): the deep
+    payload kept, the u8 preview round(v * 255 / 65535)."""
+    from paintfe_tpu_torch.core.deep import DeepRgbaBuffer
+
+    p = str(path).lower()
+    try:
+        if p.endswith(".png"):
+            with open(path, "rb") as fh:
+                head = fh.read(33)
+            if len(head) < 33 or head[24] != 16:  # IHDR bit depth byte
+                return None
+            deep16 = read_png16(path)
+        elif p.endswith((".tif", ".tiff")):
+            arr = read_tiff_deep(path)
+            if arr.dtype == np.uint8:
+                return None
+            if arr.dtype == np.float32:
+                buf = DeepRgbaBuffer(PixelFormat.RGBA_F32, arr.reshape(-1).astype(f32))
+                return buf.to_rgba8(arr.shape[1], arr.shape[0]), PixelFormat.RGBA_F32, buf
+            deep16 = arr
+        else:
+            return None
+    except Exception:  # noqa: BLE001 - not a deep file: the u8 codec reports it
+        return None
+    h, w = deep16.shape[:2]
+    buf = DeepRgbaBuffer(PixelFormat.RGBA_U16, deep16.reshape(-1).astype(np.uint16))
+    return buf.to_rgba8(w, h), PixelFormat.RGBA_U16, buf
 
 
 def encode_prepared_and_write(prep: PreparedExport, path, fmt: str,

@@ -10,9 +10,9 @@ Implements V1 write for plain raster stacks, V2 when text layers are
 present, V3 when experimental features are (folders, adjustment layers,
 deep pixels, HDR, non-u8 formats, source metadata), and V0/V1/V2/V3 read
 — the same auto-selection ladder as build_pfe (io.rs:256-283), byte for
-byte.  Text layers are not yet ported: a V2/V3 layer that carries a text
-payload raises NotYetPorted (a text layer without one loads as its
-pixels).
+byte.  A text layer's payload is ops/text_layer.py's JSON, written and read
+as the JAX package does (a payload it cannot decode leaves the layer its
+rasterized pixels).
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ from paintfe_tpu_torch.core.deep import (
     ImageMetadata,
     PixelFormat,
 )
-from paintfe_tpu_torch.errors import NotYetPorted
 
 CHUNK = 64
 
@@ -168,12 +167,10 @@ def _needs_v3(canvas: Canvas) -> bool:
     )
 
 
-def _text_layer(name: str):
-    return NotYetPorted(f"text layer '{name}' is not yet ported to paintfe_tpu_torch")
-
-
 def _text_payload(layer) -> bytes:
-    raise _text_layer(layer.name)
+    from paintfe_tpu_torch.ops.text_layer import text_data_to_json
+
+    return text_data_to_json(layer.text_data)
 
 
 def save_pfe(canvas: Canvas, path: str):
@@ -272,7 +269,12 @@ def _load_v1v2(rd: _Reader, v2: bool) -> Canvas:
         if layer_type == 1:
             layer.content = "text"
             if text_blob:
-                raise _text_layer(name)
+                # our own JSON payload round-trips; reference-bincode text
+                # payloads return None (accepted text-parity gap) and the
+                # layer keeps its rasterized pixels
+                from paintfe_tpu_torch.ops.text_layer import text_data_from_json
+
+                layer.text_data = text_data_from_json(text_blob)
         canvas.layers.append(layer)
     canvas.active_layer_index = min(active, max(len(canvas.layers) - 1, 0))
     return canvas
@@ -493,7 +495,9 @@ def _load_v3(rd: _Reader) -> Canvas:
         if layer.content == "adjustment" and content_data:
             layer.adjustment = _read_adjustment(content_data)
         elif layer.content == "text" and content_data:
-            raise _text_layer(name)
+            from paintfe_tpu_torch.ops.text_layer import text_data_from_json
+
+            layer.text_data = text_data_from_json(content_data)
         canvas.layers.append(layer)
     canvas.active_layer_index = min(active, max(len(canvas.layers) - 1, 0))
     return canvas

@@ -7,7 +7,9 @@ whole chain in one hand-written CUDA kernel (K-chain, csrc/fused_chain.cu)
 for a CUDA tensor and takes the plain version for a CPU tensor.  Both give
 the bytes of chaining the script-level ops.  The kernel reads its taps and
 levels table from device memory, uploaded once per sigma and per (black,
-white, gamma) and cached here.
+white, gamma) and cached here; a cached table is complete before any
+stream reads it, and each launch marks its stream as a reader
+(utils/device.upload_shared, read_on_current_stream).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from paintfe_tpu_torch.ops.kernels import (_taps_on, blur_sums, chain_tile_rows,
 from paintfe_tpu_torch.parallel.pipeline import (_bc_device, _levels_device,
                                                  _sepia_device, bc_factor,
                                                  levels_lut)
+from paintfe_tpu_torch.utils.device import read_on_current_stream, upload_shared
 
 f32 = np.float32
 
@@ -67,7 +70,7 @@ def _chain_taps(device: torch.device, sigma: float):
 def _levels_on(device: torch.device, black: float, white: float, gamma: float):
     """The 256-entry levels table on `device`, built and uploaded once per
     (black, white, gamma)."""
-    return torch.from_numpy(levels_lut(black, white, gamma)).to(device)
+    return upload_shared(levels_lut(black, white, gamma), device)
 
 
 def fused_chain_kernel(img, overlay, *, sigma=2.0, brightness=10.0,
@@ -97,7 +100,8 @@ def fused_chain_kernel(img, overlay, *, sigma=2.0, brightness=10.0,
     device = img.device
     with device_guard(device):
         taps, nt = _chain_taps(device, float(sigma))
-        levels = _levels_on(device, black, white, gamma)
+        taps = read_on_current_stream(taps)
+        levels = read_on_current_stream(_levels_on(device, black, white, gamma))
         stream = launch_stream(device)
         r = nt // 2
         th = chain_tile_rows(r)

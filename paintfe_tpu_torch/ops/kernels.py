@@ -29,6 +29,7 @@ import torch
 
 from paintfe_tpu_torch.core.blend import blend_u8
 from paintfe_tpu_torch.ops.filters import _oddeven_merge_network, gaussian_kernel
+from paintfe_tpu_torch.utils.device import read_on_current_stream, upload_shared
 from paintfe_tpu_torch.utils.quant import round_u8
 
 # Tile geometry: TILE_W is csrc/blur_tile.cuh's kTileW.
@@ -496,8 +497,10 @@ def pass_route(w: int, r: int) -> str:
 
 @functools.lru_cache(maxsize=16)
 def _taps_on(device: torch.device, taps: bytes) -> torch.Tensor:
-    """The f32 taps in device memory, uploaded once per tap set and device."""
-    return torch.from_numpy(np.frombuffer(taps, np.float32).copy()).to(device)
+    """The f32 taps in device memory, uploaded once per tap set and device
+    (utils/device.upload_shared: readable from any stream; a reader marks
+    its stream with read_on_current_stream)."""
+    return upload_shared(np.frombuffer(taps, np.float32), device)
 
 
 def gaussian_blur_pass(x: torch.Tensor, taps) -> torch.Tensor:
@@ -520,7 +523,7 @@ def gaussian_blur_pass(x: torch.Tensor, taps) -> torch.Tensor:
     lib = load_library()
     seg = pass_segment(w) if pass_route(w, len(taps) // 2) == "staged" else 0
     with device_guard(x.device):
-        taps_dev = _taps_on(x.device, taps.tobytes())
+        taps_dev = read_on_current_stream(_taps_on(x.device, taps.tobytes()))
         stream = launch_stream(x.device)
         rc = lib.pfe_blur_pass(x.data_ptr(), taps_dev.data_ptr(), out.data_ptr(),
                                c * h, w, len(taps), seg, stream)

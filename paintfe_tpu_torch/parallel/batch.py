@@ -1,12 +1,16 @@
 """Batched CLI runner on one device (paintfe_tpu.parallel.batch
-counterpart, `run_sharded_batch`).
+counterpart: `run_sharded_batch`, and `run_sharded_frames` for --shard
+--animate).
 
 Strategy: trace the script's op chain once (pipeline.trace_script); bucket
 inputs by dimensions so each bucket is one [N, H, W, 4] batch; run each
 bucket through the chain on the device once FLUSH_AT images have gathered
 (and the remainder at the end); encode results behind the compute on a
-pool.  Scripts that touch pixels directly run per image, still with
-keep-going semantics.
+pool, or collect them as frames.  Scripts that touch pixels directly run
+per image, still with keep-going semantics.  Raster inputs load through
+the u8 codec, as the JAX package's --shard loads them (a 16-bit input is
+PIL's 8-bit reading of it); layered documents (.pfe, .pdn) take the serial
+canvas path.
 
 This module imports only numpy and the codecs at the top: the encode pool's
 spawn workers import it to find `_encode_one`.
@@ -65,34 +69,97 @@ def shutdown_encode_pool():
         _PROC_POOL = None
 
 
+# layered containers take the serial canvas path (script on the active
+# layer, canvas-op replay, flatten), which a flat batch cannot model
+LAYERED = (".pfe", ".pdn")
+
+
+def _trace(script_source: Optional[str], verbose: bool):
+    """The script's op chain for the batches, as (ops, retrace per bucket),
+    or None when the script touches pixels and runs per image.  A script
+    error raises."""
+    from paintfe_tpu_torch.parallel.pipeline import NotVectorizable, trace_script
+
+    if not script_source:
+        return [], False
+    try:
+        return trace_script(script_source), False
+    except NotVectorizable as e:
+        if str(e) in ("width", "height"):
+            # dimension-derived op params: re-trace per shape bucket so
+            # width()/height() report the real dims
+            return [], True
+        if verbose:
+            print(f"note: script uses per-pixel API ({e}); running per-image")
+        return None
+
+
+def _run_buckets(inputs, script_source, plan, device, per_image, on_result, state):
+    """Layered inputs go to per_image(idx) one by one; the others decode
+    ahead (a bounded window), gather in shape buckets, and each bucket runs
+    as one batch on `device` once FLUSH_AT images have gathered, the rest
+    at the end.  on_result(idx, image) takes each processed image; a bucket
+    that fails retries its images with per_image, which reports each error
+    itself; an input that does not decode sets state["failed"]."""
+    from paintfe_tpu_torch.parallel.pipeline import NotVectorizable, run_batch, trace_script
+    from paintfe_tpu_torch.parallel.prefetch import prefetch_images
+
+    ops, per_bucket_trace = plan
+
+    def flush(shape, idxs, loaded):
+        try:
+            bops = (trace_script(script_source, dims=(shape[1], shape[0]))
+                    if per_bucket_trace else ops)
+            out = run_batch(np.stack([loaded[i] for i in idxs]), bops, device)
+        except NotVectorizable:
+            out = None
+        except Exception as e:
+            print(f"  error: batch of {len(idxs)} {shape[1]}x{shape[0]} "
+                  f"images failed ({e}); retrying per-image", file=sys.stderr)
+            out = None
+        for k, i in enumerate(idxs):
+            loaded.pop(i)
+            if out is None:
+                per_image(i)
+            else:
+                on_result(i, out[k])
+
+    flat = []
+    for idx, p in enumerate(inputs):
+        if pathlib.Path(p).suffix.lower() in LAYERED:
+            per_image(idx)
+        else:
+            flat.append(idx)
+    buckets = defaultdict(list)  # (h, w) -> [input index]
+    loaded = {}
+    for k, (_, img) in enumerate(prefetch_images([inputs[i] for i in flat])):
+        idx = flat[k]
+        if isinstance(img, Exception):
+            print(f"  error: {img}", file=sys.stderr)
+            state["failed"] = True
+            continue
+        loaded[idx] = img
+        shape = img.shape[:2]
+        buckets[shape].append(idx)
+        if len(buckets[shape]) >= FLUSH_AT:
+            flush(shape, buckets.pop(shape), loaded)
+    for shape, idxs in buckets.items():
+        flush(shape, idxs, loaded)
+
+
 def run_sharded_batch(inputs: List[pathlib.Path], args, fmt: str,
                       script_source: Optional[str]) -> int:
     import concurrent.futures
 
-    from paintfe_tpu_torch.cli import build_output_path, load_image
-    from paintfe_tpu_torch.parallel.pipeline import (NotVectorizable,
-                                                     run_batch, trace_script)
-    from paintfe_tpu_torch.parallel.prefetch import prefetch_images
+    from paintfe_tpu_torch.cli import build_output_path
 
-    device = args.device
-    ops = []
-    per_bucket_trace = False
-    if script_source:
-        try:
-            ops = trace_script(script_source)
-        except NotVectorizable as e:
-            if str(e) in ("width", "height"):
-                # dimension-derived op params: re-trace per shape bucket so
-                # width()/height() report the real dims
-                per_bucket_trace = True
-            else:
-                if args.verbose:
-                    print(f"note: script uses per-pixel API ({e}); "
-                          "running per-image")
-                return _fallback_serial(inputs, args, fmt, script_source)
-        except Exception as e:
-            print(f"  error: script error: {e}", file=sys.stderr)
-            return 1
+    try:
+        plan = _trace(script_source, args.verbose)
+    except Exception as e:
+        print(f"  error: script error: {e}", file=sys.stderr)
+        return 1
+    if plan is None:
+        return _fallback_serial(inputs, args, fmt, script_source)
 
     state = {"failed": False, "done": 0}
     t0 = time.time()
@@ -135,65 +202,14 @@ def run_sharded_batch(inputs: List[pathlib.Path], args, fmt: str,
             return
         encodes.append(thread_pool.submit(_encode_one, img, *eargs))
 
-    def run_per_image(idxs, loaded):
-        for i in idxs:
-            loaded.pop(i, None)
-            if _run_one_safe(inputs[i], args, fmt, script_source):
-                state["done"] += 1
-            else:
-                state["failed"] = True
-
-    def flush_bucket(shape, idxs, loaded):
-        """Compute one static-shape batch.  A bucket failure keeps going:
-        its images fall back to the per-image path, which reports each
-        error itself."""
-        try:
-            bops = ops
-            if per_bucket_trace:
-                bops = trace_script(script_source, dims=(shape[1], shape[0]))
-            batch = np.stack([loaded[i] for i in idxs])
-            out = run_batch(batch, bops, device)
-        except NotVectorizable:
-            run_per_image(idxs, loaded)
-            return
-        except Exception as e:
-            print(f"  error: batch of {len(idxs)} {shape[1]}x{shape[0]} "
-                  f"images failed ({e}); retrying per-image", file=sys.stderr)
-            run_per_image(idxs, loaded)
-            return
-        for k, i in enumerate(idxs):
-            loaded.pop(i)
-            save_one(i, out[k])
-
-    # Layered containers need the full canvas path (script on the active
-    # layer, canvas-op replay, flatten): the serial runner handles them
-    # with identical semantics.
-    flat_idxs = []
-    for idx, p in enumerate(inputs):
-        if pathlib.Path(p).suffix.lower() in (".pfe", ".pdn"):
-            run_per_image([idx], {})
+    def per_image(idx):
+        if _run_one_safe(inputs[idx], args, fmt, script_source):
+            state["done"] += 1
         else:
-            flat_idxs.append(idx)
+            state["failed"] = True
 
-    # Stream decode -> bucket -> flush: the decode-ahead window stays
-    # bounded.
-    buckets = defaultdict(list)  # (h, w) -> [input index]
-    loaded = {}
     try:
-        for k, (path, img) in enumerate(
-                prefetch_images([inputs[i] for i in flat_idxs], load=load_image)):
-            idx = flat_idxs[k]
-            if isinstance(img, Exception):
-                print(f"  error: {img}", file=sys.stderr)
-                state["failed"] = True
-                continue
-            loaded[idx] = img
-            shape = img.shape[:2]
-            buckets[shape].append(idx)
-            if len(buckets[shape]) >= FLUSH_AT:
-                flush_bucket(shape, buckets.pop(shape), loaded)
-        for shape, idxs in buckets.items():
-            flush_bucket(shape, idxs, loaded)
+        _run_buckets(inputs, script_source, plan, args.device, per_image, save_one, state)
     finally:
         for fut in encodes:
             _settle(fut)
@@ -205,6 +221,40 @@ def run_sharded_batch(inputs: List[pathlib.Path], args, fmt: str,
         n = state["done"]
         print(f"batch: {n} images in {dt:.2f}s ({n / max(dt, 1e-9):.1f} img/s)")
     return 1 if state["failed"] else 0
+
+
+def run_sharded_frames(inputs: List[pathlib.Path], args, script_source: Optional[str]):
+    """The frames of `--shard --animate`: run_sharded_batch's bucketed
+    batches, collecting processed frames instead of encoding files.
+    Returns (frames in input order, failed); a failed input is skipped with
+    keep-going semantics, as in the serial --animate loop, and a failed
+    bucket retries its images one by one."""
+    from paintfe_tpu_torch.cli import _INPUT_ERRORS, _compute_frame
+
+    try:
+        plan = _trace(script_source, args.verbose)
+    except Exception as e:
+        print(f"  error: script error: {e}", file=sys.stderr)
+        return [], True
+    frames = {}
+    state = {"failed": False}
+
+    def per_image(idx):
+        try:
+            frames[idx] = _compute_frame(inputs[idx], script_source, args.device)
+        except _INPUT_ERRORS as e:
+            print(f"  error: {e}", file=sys.stderr)
+            state["failed"] = True
+
+    def on_result(idx, img):
+        frames[idx] = np.asarray(img)
+
+    if plan is None:
+        for idx in range(len(inputs)):
+            per_image(idx)
+    else:
+        _run_buckets(inputs, script_source, plan, args.device, per_image, on_result, state)
+    return [frames[i] for i in sorted(frames)], state["failed"]
 
 
 def _run_one_safe(input_path, args, fmt, script_source) -> bool:

@@ -9,7 +9,9 @@ tests/test_torch_scripting.py guards them against drift.
 from paintfe_tpu_torch.scripting.api import CanvasOpRequest, ScriptContext  # noqa: F401
 from paintfe_tpu_torch.scripting.engine import (  # noqa: F401
     ScriptError,
+    ScriptMessage,
     apply_canvas_ops,
     compile_script,
+    execute_script_async,
     execute_script_sync,
 )

@@ -4,14 +4,20 @@ Behavioral contract: scripting.rs:1489-1821 — `compile_script`,
 `execute_script_sync(source, pixels, w, h, mask) -> (pixels, w, h, console,
 canvas_ops)`; ScriptError carries a message plus best-effort line/column.
 `execute_script_sync` takes a torch `device` for the device-side ops.
-`apply_canvas_ops` replays canvas-wide requests on the other layers
-(scripting.rs:1640-1723).
+`execute_script_async` runs a script on a worker thread and streams
+`ScriptMessage`s (scripting.rs:222-252, 1512-1630); the worker may launch
+on a CUDA stream of its own.  `apply_canvas_ops` replays canvas-wide
+requests on the other layers (scripting.rs:1640-1723).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import List, Optional, Tuple
+import queue
+import threading
+import time
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
@@ -189,3 +195,116 @@ def apply_canvas_ops(canvas, ops: List[CanvasOpRequest], skip_layer: int):
                 cw = min(m.shape[1], canvas.width)
                 fixed[:ch, :cw] = m[:ch, :cw]
                 layer.mask = fixed
+
+
+# ---------------------------------------------------------------------------
+# Async execution (GUI-mode parity: scripting.rs:222-252, 1512-1630)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ScriptMessage:
+    """Streamed from the worker thread: kind in {completed, error, preview,
+    console, progress}."""
+
+    kind: str
+    payload: Any = None
+
+
+def execute_script_async(source, pixels, width, height, mask=None, rng_seed=None,
+                         cancel_event: Optional[threading.Event] = None,
+                         device="cuda", stream=None):
+    """Run a script on a worker thread; returns (thread, message_queue).
+
+    Messages: console lines as they appear, progress updates, previews at
+    each sleep, then exactly one terminal `completed` (payload = (pixels,
+    w, h, console, canvas_ops, elapsed_ms)) or `error` (payload =
+    ScriptError).  `cancel_event.set()` aborts between operations (the
+    reference polls an AtomicBool from on_progress).  The device-side ops
+    run on `device` (the card unless the caller passes "cpu"; CUDA with no
+    card raises RuntimeError here, before the thread starts), and on a
+    CUDA device under `stream` when one is given (a torch.cuda.Stream; the
+    current stream is per thread, so the worker's is the device's default
+    stream otherwise)."""
+    from paintfe_tpu_torch.scripting.interp import RhaiSystemError
+    from paintfe_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    messages: "queue.Queue[ScriptMessage]" = queue.Queue()
+    cancel_event = cancel_event or threading.Event()
+
+    def run():
+        start = time.perf_counter()
+        compile_script(source)
+        ctx = ScriptContext(np.asarray(pixels, np.uint8), width, height, mask,
+                            rng_seed, dev)
+        interp_ref = {}
+        fns = build_host_fns(ctx, interp_ref)
+
+        orig_print = fns["print_line"]
+
+        def streaming_print(msg=""):
+            r = orig_print(msg)
+            messages.put(ScriptMessage("console", ctx.console[-1]))
+            return r
+
+        fns["print_line"] = streaming_print
+        fns["print"] = streaming_print
+
+        orig_progress = fns["progress"]
+
+        def streaming_progress(frac):
+            r = orig_progress(frac)
+            messages.put(ScriptMessage("progress", ctx.progress))
+            return r
+
+        fns["progress"] = streaming_progress
+
+        orig_sleep = fns["sleep"]
+
+        def preview_sleep(ms):
+            messages.put(ScriptMessage("preview", (ctx.pixels.copy(), ctx.width,
+                                                   ctx.height)))
+            return orig_sleep(ms)
+
+        fns["sleep"] = preview_sleep
+
+        interp = Interpreter(fns)
+        interp_ref["interp"] = interp
+        orig_tick = interp.tick
+
+        def cancellable_tick():
+            if cancel_event.is_set() and interp.ops % 1024 == 0:
+                # a system error: a script-level try/catch cannot swallow it
+                raise RhaiSystemError("Script cancelled by user")
+            orig_tick()
+
+        interp.tick = cancellable_tick
+        _run_script(interp, source)
+        elapsed_ms = int((time.perf_counter() - start) * 1000)
+        # Completed carries elapsed_ms like the reference's
+        # ScriptMessage::Completed (scripting.rs:232, :1596-1608)
+        return ScriptMessage("completed", (ctx.pixels, ctx.width, ctx.height,
+                                           ctx.console, ctx.canvas_ops, elapsed_ms))
+
+    def worker():
+        import torch
+
+        try:
+            with (torch.cuda.stream(stream) if stream is not None and dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                messages.put(run())
+        except ScriptError as e:
+            messages.put(ScriptMessage("error", e))
+        except (RhaiSyntaxError, RhaiRuntimeError) as e:
+            messages.put(ScriptMessage("error", ScriptError(str(e))))
+        except BaseException as e:  # noqa: BLE001 - terminal-message contract
+            # any other escape must still produce the terminal message: a
+            # consumer draining the queue until one would hang otherwise
+            messages.put(ScriptMessage(
+                "error", ScriptError(f"internal script engine error: "
+                                     f"{type(e).__name__}: {e}")))
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    return thread, messages

@@ -128,17 +128,25 @@ def test_one_bad_input_fails_the_run_but_not_the_others(inputs, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--animate", "a.gif"], "--animate is not yet ported"),
-    (["--trace-dir", "tr"], "--trace-dir is not yet ported"),
+    (["--animate", "a.gif"], "a.gif"),
+    (["--trace-dir", "tr"], "tr"),
 ])
 def test_unported_options_report_per_input(inputs, capsys, argv, match):
+    """--animate and --trace-dir, once refused per input, now run: rc 0 and
+    the animation or the trace is written."""
+    argv = [str(inputs / a) if a in ("a.gif", "tr") else a for a in argv]
     base = ["-i", str(inputs / "in0.png"), "--output-dir", str(inputs / "o"),
             "--device", "cpu"]
-    assert tcli.main(base + argv) == 1
-    assert match in capsys.readouterr().err
+    assert tcli.main(base + argv) == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    out = inputs / match
+    assert out.is_file() if match.endswith(".gif") else any(out.glob("*.json"))
 
 
 def test_layered_and_16_bit_inputs_report_not_yet_ported(inputs, capsys):
+    """A 16-bit RGB PNG, once refused, now runs through both CLIs to the
+    same bytes (a 16-bit PNG serially, PIL's 8-bit reading under --shard);
+    a corrupt .pdn beside it fails alone with a PdnError, rc 1."""
     (inputs / "doc.pdn").write_bytes(b"\0" * 16)
     deep = (np.arange(64 * 3, dtype=np.uint16).reshape(8, 8, 3) * 300)
     # a 16-bit RGB PNG written by hand: PIL writes 16-bit only for gray
@@ -155,13 +163,17 @@ def test_layered_and_16_bit_inputs_report_not_yet_ported(inputs, capsys):
         b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, 16, 2, 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
     for shard in ([], ["--shard"]):
-        argv = ["-i", str(inputs / "doc.pdn"), str(inputs / "deep.png"),
-                str(inputs / "in0.png"), "--output-dir", str(inputs / "o"),
-                "--device", "cpu", *shard]
-        assert tcli.main(argv) == 1
+        common = ["-i", str(inputs / "doc.pdn"), str(inputs / "deep.png"),
+                  str(inputs / "in0.png"), *shard]
+        out, ref = inputs / f"o{len(shard)}", inputs / f"j{len(shard)}"
+        assert tcli.main(common + ["--output-dir", str(out), "--device", "cpu"]) == 1
         err = capsys.readouterr().err
-        assert ".pdn input" in err and "16-bit input" in err
-        assert (inputs / "o" / "in0.png").exists()
+        assert "not a Paint.NET file" in err and "not yet ported" not in err
+        assert jcli.main(common + ["--output-dir", str(ref)]) == 1
+        for name in ("deep.png", "in0.png"):
+            assert (out / name).read_bytes() == (ref / name).read_bytes(), name
+        assert (out / "deep.png").read_bytes()[24] == (8 if shard else 16)  # IHDR depth
+        assert not (out / "doc.png").exists()
 
 
 def test_multi_host_launch_is_not_yet_ported(inputs, capsys, monkeypatch):
@@ -323,22 +335,40 @@ def test_profile_stages_match_the_jax_cli(inputs, capsys, source, fmt):
 
 
 @pytest.mark.parametrize("shard", [False, True])
-def test_text_layers_and_pdn_report_not_yet_ported(inputs, capsys, shard):
+def test_text_layers_and_pdn_report_not_yet_ported(inputs, capsys, shard, monkeypatch):
+    """Text layers and .pdn documents, once refused, now run through both
+    CLIs to the same bytes; RAW inputs and a multi-host launch
+    (PAINTFE_COORDINATOR) are still refused."""
+    import chip_smoke
     from paintfe_tpu.core import canvas as jcanvas
     from paintfe_tpu.io import pfe as jpfe
-    from paintfe_tpu.ops.text_layer import TextLayerData
+    from paintfe_tpu.ops.text_layer import make_text_layer_data
 
     doc = jcanvas.Canvas.new(20, 10)
     doc.layers.append(jcanvas.Layer.new("words", 20, 10))
     doc.layers[1].content = "text"
-    doc.layers[1].text_data = TextLayerData()
+    doc.layers[1].text_data = make_text_layer_data("Hi", 1, 0, size=9)
     jpfe.save_pfe(doc, str(inputs / "text.pfe"))
-    (inputs / "doc.pdn").write_bytes(b"PDN3" + b"\0" * 12)
-    argv = ["-i", str(inputs / "text.pfe"), str(inputs / "doc.pdn"), str(inputs / "in0.png"),
-            "--output-dir", str(inputs / "o"), "--device", "cpu"]
-    assert tcli.main(argv + (["--shard"] if shard else [])) == 1
-    err = capsys.readouterr().err
-    assert "text layer 'words' is not yet ported" in err
-    assert ".pdn input" in err and "not yet ported" in err
-    assert (inputs / "o" / "in0.png").exists()
-    assert not (inputs / "o" / "text.png").exists()
+    rng = np.random.default_rng(3)
+    (inputs / "doc.pdn").write_bytes(chip_smoke.pdn_bytes(
+        [dict(name="a", pixels=rng.integers(0, 256, (10, 20, 4), np.uint8)),
+         dict(name="b", pixels=rng.integers(0, 256, (10, 20, 4), np.uint8), blend="Screen")],
+        20, 10))
+    extra = ["--shard"] if shard else []
+    common = ["-i", str(inputs / "text.pfe"), str(inputs / "doc.pdn"), str(inputs / "in0.png"),
+              *extra]
+    assert tcli.main(common + ["--output-dir", str(inputs / "o"), "--device", "cpu"]) == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    assert jcli.main(common + ["--output-dir", str(inputs / "j")]) == 0
+    for name in ("text.png", "doc.png", "in0.png"):
+        assert (inputs / "o" / name).read_bytes() == (inputs / "j" / name).read_bytes(), name
+
+    (inputs / "shot.dng").write_bytes(b"II*\0" + b"\0" * 12)
+    argv = ["-i", str(inputs / "shot.dng"), str(inputs / "in0.png"),
+            "--output-dir", str(inputs / "r"), "--device", "cpu", *extra]
+    assert tcli.main(argv) == 1
+    assert "RAW camera format '.dng' is not yet ported" in capsys.readouterr().err
+    assert (inputs / "r" / "in0.png").exists()
+    monkeypatch.setenv("PAINTFE_COORDINATOR", "localhost:1234")
+    assert tcli.main(argv) == 1
+    assert "PAINTFE_COORDINATOR) is not yet ported" in capsys.readouterr().err

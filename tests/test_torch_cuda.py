@@ -558,3 +558,146 @@ def test_resize_through_a_card_context_equals_the_cpu(dev, filt):
     on_cpu = engine.execute_script_sync(src, img, 70, 45, None, rng_seed=1, device="cpu")
     np.testing.assert_array_equal(on_card[0], on_cpu[0])
     assert on_card[1:3] == on_cpu[1:3] == (50, 40)
+
+
+# -- threads and streams (K-blur's constant taps, the cached device tables) --
+
+C7_SCRIPTS = ("apply_blur(1.0); apply_twist(30.0); apply_blur(4.0);",
+              "apply_blur(6.0); apply_twist(-45.0); apply_blur(0.5);")
+
+
+def test_async_workers_on_two_streams_equal_their_plain_versions(dev):
+    """Two execute_script_async workers at once, each under its own CUDA
+    stream, with different blur sigmas and a twist, over 20 rounds: every
+    result equals the same script on the CPU (the plain versions)."""
+    from paintfe_tpu_torch.scripting import execute_script_async, execute_script_sync
+
+    img = _img((270, 480), 11, "cpu").numpy()
+    want = [execute_script_sync(s, img, 480, 270, device="cpu")[0] for s in C7_SCRIPTS]
+    streams = [torch.cuda.Stream(dev) for _ in C7_SCRIPTS]
+    before = kernels.gaussian_blur_fused.launches
+    for _ in range(20):
+        runs = [execute_script_async(s, img, 480, 270, device=dev, stream=st)
+                for s, st in zip(C7_SCRIPTS, streams)]
+        for (thread, q), expected in zip(runs, want):
+            thread.join(120)
+            msgs = []
+            while not q.empty():
+                msgs.append(q.get())
+            assert msgs[-1].kind == "completed", msgs[-1].payload
+            np.testing.assert_array_equal(msgs[-1].payload[0], expected)
+    assert kernels.gaussian_blur_fused.launches - before == 20 * 4
+
+
+def test_blur_from_two_threads_on_two_streams_equals_plain(dev):
+    """K-blur launched from two host threads on two streams with different
+    sigmas, each call queued behind a long one on its own stream: each
+    result equals gaussian_blur_plain."""
+    import threading
+
+    imgs = [_img((2, 540, 960), 12 + k, dev) for k in range(2)]
+    sigmas = (1.0, 7.0)
+    want = [kernels.gaussian_blur_plain(i, s) for i, s in zip(imgs, sigmas)]
+    outs = [[], []]
+
+    def worker(k):
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            for _ in range(20):
+                kernels.gaussian_blur_fused(imgs[k], 25.0)  # a long launch ahead
+                outs[k].append(kernels.gaussian_blur_fused(imgs[k], sigmas[k]))
+        stream.synchronize()
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for k in range(2):
+        for out in outs[k]:
+            assert torch.equal(out, want[k])
+
+
+def test_cached_tables_are_read_safely_from_another_stream(dev):
+    """K-chain's taps and levels table (and K-pass's taps), cached on one
+    stream, read by launches on another: equal to the plain versions."""
+    img, ov = _img((65, 97), 13, dev), _img((65, 97), 14, dev)
+    fused_chain_kernel(img, ov, sigma=3.0)  # fills the caches on this stream
+    kernels.gaussian_blur_pass(img.permute(2, 0, 1).float().contiguous(),
+                               kernels.gaussian_kernel(3.0))
+    other = torch.cuda.Stream(dev)
+    with torch.cuda.stream(other):
+        out = fused_chain_kernel(img, ov, sigma=3.0)
+        planar = img.permute(2, 0, 1).float().contiguous()
+        passed = kernels.gaussian_blur_pass(planar, kernels.gaussian_kernel(3.0))
+    other.synchronize()
+    assert torch.equal(out, fused_chain(img, ov, sigma=3.0))
+    assert torch.equal(passed, kernels.gaussian_blur_pass_plain(planar,
+                                                                kernels.gaussian_kernel(3.0)))
+
+
+# -- the inputs path: text layers, 16-bit and .pdn inputs on the card ----------
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_outline_on_the_card_equals_the_cpu(dev, mode):
+    from paintfe_tpu_torch.ops.effects import render
+
+    img = _img((61, 83), 15, "cpu").numpy()
+    img[..., 3] = np.where(np.arange(83)[None, :] % 17 < 9, img[..., 3], 0)
+    on_card = render.outline(img, 3, (200, 10, 60, 220), mode, True, device=dev)
+    assert on_card.is_cuda
+    assert torch.equal(on_card.cpu(), render.outline(img, 3, (200, 10, 60, 220), mode,
+                                                     True, device="cpu"))
+
+
+def test_text_layer_on_the_card_equals_the_cpu(dev):
+    from paintfe_tpu_torch.ops import text_layer as tl
+
+    td = tl.make_text_layer_data("Card text", 10, 12, size=30, color=(250, 250, 250, 255))
+    td.effects.outline = tl.OutlineEffect((255, 0, 0, 255), 2.0)
+    td.effects.shadow = tl.ShadowEffect((0, 0, 0, 200), 4.0, 5.0, 6.0, 1.5)
+    before = kernels.gaussian_blur_fused.launches
+    on_card = td.rasterize(240, 90, device=dev)
+    assert kernels.gaussian_blur_fused.launches == before + 1  # the shadow's blur
+    td.mark_dirty()
+    np.testing.assert_array_equal(on_card, td.rasterize(240, 90, device="cpu"))
+
+
+def test_cli_on_deep_pdn_and_text_inputs_on_the_card_equals_the_cpu(dev, tmp_path):
+    import chip_smoke
+    from paintfe_tpu_torch import cli
+    from paintfe_tpu_torch.core.canvas import Canvas, Layer
+    from paintfe_tpu_torch.io import deep_export
+    from paintfe_tpu_torch.io.pfe import save_pfe
+    from paintfe_tpu_torch.ops import text_layer as tl
+
+    rng = np.random.default_rng(16)
+    h, w = 90, 130
+    (tmp_path / "deep.png").write_bytes(chip_smoke.png16_bytes(
+        rng.integers(0, 65536, (h, w, 4), np.uint16)))
+    deep_export.write_tiff16(tmp_path / "deep16.tif", w, h,
+                             rng.integers(0, 65536, (h, w, 4), np.uint16), "deflate")
+    (tmp_path / "doc.pdn").write_bytes(chip_smoke.pdn_bytes(
+        [dict(name=f"l{k}", pixels=rng.integers(0, 256, (h, w, 4), np.uint8),
+              blend=("Normal", "Multiply", "Screen")[k]) for k in range(3)], w, h))
+    doc = Canvas.new(w, h)
+    doc.layers[0].pixels = rng.integers(0, 256, (h, w, 4), np.uint8)
+    text = Layer.new("t", w, h)
+    text.content = "text"
+    text.text_data = tl.make_text_layer_data("Hi", 5, 5, size=28, color=(255, 255, 0, 255))
+    text.text_data.effects.shadow = tl.ShadowEffect(blur_radius=6.0)
+    doc.layers.append(text)
+    save_pfe(doc, str(tmp_path / "text.pfe"))
+    (tmp_path / "fx.rhai").write_text("apply_blur(2.0);")
+    for fmt in ("png", "tiff"):
+        common = ["-i", str(tmp_path / "deep*"), str(tmp_path / "doc.pdn"),
+                  str(tmp_path / "text.pfe"), "-s", str(tmp_path / "fx.rhai"), "-f", fmt]
+        assert cli.main(common + ["--output-dir", str(tmp_path / f"c{fmt}"), "--device",
+                                  "cuda"]) == 0
+        assert cli.main(common + ["--output-dir", str(tmp_path / f"p{fmt}"), "--device",
+                                  "cpu"]) == 0
+        names = sorted(p.name for p in (tmp_path / f"p{fmt}").iterdir())
+        assert len(names) == 4
+        for name in names:
+            assert ((tmp_path / f"c{fmt}" / name).read_bytes()
+                    == (tmp_path / f"p{fmt}" / name).read_bytes()), name

@@ -14,7 +14,6 @@ from paintfe_tpu.core.blend import BlendMode as JMode
 from paintfe_tpu.io import deep_export as jexport
 from paintfe_tpu.io import pfe as jpfe
 from paintfe_tpu_torch.core.canvas import canvas_from_document
-from paintfe_tpu_torch.errors import NotYetPorted
 from paintfe_tpu_torch.io import deep_export as texport
 from paintfe_tpu_torch.io import pfe as tpfe
 
@@ -162,17 +161,27 @@ def test_corrupt_files_raise_pfe_error(tmp_path, blob):
 
 
 def test_text_payloads_are_not_yet_ported(tmp_path):
+    """V2 and V3 containers with text payloads, once refused, now load: the
+    port's text data serializes to the JAX package's JSON, and the port
+    writes the JAX package's bytes back."""
+    from paintfe_tpu.ops.text_layer import TextLayerData, text_data_to_json
+    from paintfe_tpu_torch.ops.text_layer import text_data_to_json as t_to_json
+
     jpfe.save_pfe(_text_doc(6, True), str(tmp_path / "t2.pfe"))
-    with pytest.raises(NotYetPorted, match="text layer 'L1 ünï' is not yet ported"):
-        tpfe.load_pfe(str(tmp_path / "t2.pfe"))
     v3 = _v3_doc(7)
     v3.layers[1].content = "text"
-    from paintfe_tpu.ops.text_layer import TextLayerData
-
     v3.layers[1].text_data = TextLayerData()
     jpfe.save_pfe(v3, str(tmp_path / "t3.pfe"))
-    with pytest.raises(NotYetPorted, match="not yet ported"):
-        tpfe.load_pfe(str(tmp_path / "t3.pfe"))
+    for name in ("t2.pfe", "t3.pfe"):
+        tdoc = tpfe.load_pfe(str(tmp_path / name))
+        jdoc = jpfe.load_pfe(str(tmp_path / name))
+        texts = [(l.name, text_data_to_json(l.text_data)) for l in jdoc.layers
+                 if l.text_data is not None]
+        assert texts
+        assert [(l.name, t_to_json(l.text_data)) for l in tdoc.layers
+                if l.text_data is not None] == texts
+        tpfe.save_pfe(tdoc, str(tmp_path / f"port_{name}"))
+        assert (tmp_path / f"port_{name}").read_bytes() == (tmp_path / name).read_bytes()
 
 
 def _deep_doc(fmt, hdr=False, adjustment_only=False, single=False):
