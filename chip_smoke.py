@@ -32,7 +32,7 @@ It builds the port's CUDA kernels from csrc/, then:
      blurring at different sigmas around a twist, 20 rounds at 1920x1080,
      each result held against the plain versions (K-blur's constant taps
      are shared by the streams);
-  3. drives five main paths and one entry call, each with every kernel
+  3. drives six main paths and one entry call, each with every kernel
      launch count set to 0 just before it and read just after:
      - the headline path: the serial CLI (one 3840x2160 PNG, --device
        cuda) and the --shard CLI (two 3840x2160 and two 1920x1080 PNGs,
@@ -67,6 +67,22 @@ It builds the port's CUDA kernels from csrc/, then:
        whose trace must name K-blur's and K-composite's kernels; then each
        stage of the path timed alone (16-bit PNG load: zlib, defilter;
        .pdn load: NRBF, gzip; flatten; text rasterise; encodes);
+     - the document-editing path: a six-layer 3840x2160 .pfe through
+       Project.open, 24 edits (selections: ellipse, rect, feather, expand,
+       contract, colour range, the magic wand on the card; bucket fill;
+       a layer mask from the selection, inverted; duplicate and merge down
+       as mask; copy, cut, paste as layer; colour-to-alpha; flood select;
+       a selected-region flip; rotate 90, then 17.5 degrees bilinear on
+       K-warp, every layer and mask in one batch, and -30 nearest; merge
+       down on K-composite; crop), each pushed to the project's history,
+       every layer and mask after each held against a second copy edited
+       through the plain versions on the card; undo to the start (equal to
+       the opened document) and redo to the end; composite_viewport,
+       composite_lod, the soft proof, flatten, Project.save to .pfe and
+       .png (bytes equal to the plain route's) and a reopen; exactly one
+       K-warp launch and one K-composite launch for merge down and one a
+       raster run for each flatten, no other kernel; each stage's wall
+       time;
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -971,10 +987,10 @@ def _check_launched(tag, counts, names):
             raise CheckFailed(f"{name} was not launched on the {tag} path")
 
 
-def drive_main_paths(dev, gen, tmp):
-    """The main paths (headline, spatial, layered, effects, inputs) and
-    K-pass's entry call, each with launch counts from 0.  Returns each phase's launch
-    counts, by phase."""
+def drive_main_paths(dev, gen, tmp, card):
+    """The main paths (headline, spatial, layered, effects, inputs,
+    document) and K-pass's entry call, each with launch counts from 0.
+    Returns each phase's launch counts, by phase."""
     import torch
 
     from paintfe_tpu_torch.ops.fused_chain import fused_chain, fused_chain_kernel
@@ -1021,9 +1037,14 @@ def drive_main_paths(dev, gen, tmp):
     inputs = _counts()
     _check_launched("inputs", inputs, ("gaussian_blur_fused", "composite_stack_kernel"))
 
+    _reset_counts()
+    document = drive_document_path(dev, tmp, card)
+    _check_launched("document", document, ("gather_bilinear_u8", "composite_stack_kernel"))
+
     entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
     return {"headline": headline, "spatial": spatial, "layered": layered,
-            "effects": effects, "inputs": inputs, "gaussian_blur_pallas entry call": entry}
+            "effects": effects, "inputs": inputs, "document": document,
+            "gaussian_blur_pallas entry call": entry}
 
 
 def drive_blur_pass_entry(dev, png):
@@ -1299,6 +1320,393 @@ def drive_resized_document(dev, tmp):
     if out.shape != (1200, 2000, 4) or not np.array_equal(out, want):
         raise CheckFailed("resized document: r0.png differs from the plain route")
     print("  ok  resized document: 2000x1200 PNG equals the plain route's flatten")
+
+
+# ---------------------------------------------------------------------------
+# The document-editing path: Project.open, then selections, the magic wand,
+# layer and mask ops, the clipboard and canvas transforms, each pushed to the
+# project's history; undo to the start and redo to the end; merge down,
+# viewport, LOD, soft proof, flatten and save (tests/test_torch_document_path.py
+# runs the same steps against the JAX package on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def port_modules():
+    """The port's modules of the document path, by the names document_steps
+    reads (the JAX package's modules carry the same names)."""
+    import types
+
+    from paintfe_tpu_torch.core import history, mirror, project, selection
+    from paintfe_tpu_torch.ops import (canvas_ops, canvas_transform, clipboard,
+                                       color_removal, fill)
+
+    return types.SimpleNamespace(
+        selection=selection, history=history, mirror=mirror, project=project,
+        canvas_ops=canvas_ops, canvas_transform=canvas_transform,
+        clipboard=clipboard, color_removal=color_removal, fill=fill)
+
+
+def _flat_box(h, w):
+    """(y0, y1, x0, x1) of the flat patch that layers 1 and 2 hold, where
+    the wand, the bucket fill and the flood select are seeded."""
+    return h * 11 // 20, h * 17 // 20, w * 11 // 20, w * 17 // 20
+
+
+def editing_document(rng, h, w, n_layers=6):
+    """The first `n_layers` of a six-layer document to edit: an
+    opaque-left background, MULTIPLY at 0.7 with a conceal mask, SOFT_LIGHT
+    (the active layer), a brightness/contrast adjustment layer at 0.6,
+    SCREEN, and a DIFFERENCE layer in a hidden folder.  Raster content is
+    gradients plus noise; layers 1 and 2 hold a flat patch (_flat_box).  A
+    .pfe does not keep the mask."""
+    import numpy as np
+
+    from paintfe_tpu_torch.core.blend import BlendMode
+    from paintfe_tpu_torch.core.canvas import Canvas, Layer, LayerFolder
+    from paintfe_tpu_torch.core.deep import AdjustmentKind, AdjustmentLayerData
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    doc = Canvas(width=w, height=h)
+    doc.folders = [LayerFolder(id=1, name="hidden", visible=False)]
+    specs = [("background", BlendMode.NORMAL, 1.0), ("multiply", BlendMode.MULTIPLY, 0.7),
+             ("soft", BlendMode.SOFT_LIGHT, 1.0), ("bc", None, 0.6),
+             ("screen", BlendMode.SCREEN, 1.0), ("hidden", BlendMode.DIFFERENCE, 1.0)]
+    y0, y1, x0, x1 = _flat_box(h, w)
+    # frequencies in cycles per canvas, so a small document looks like a big one
+    fx, fy = 2 * np.pi / w, 2 * np.pi / h
+    for k, (name, mode, opacity) in enumerate(specs[:n_layers]):
+        layer = Layer.new(name, w, h)
+        layer.opacity = opacity
+        if mode is None:
+            layer.content = "adjustment"
+            layer.adjustment = AdjustmentLayerData(
+                kind=AdjustmentKind.BRIGHTNESS_CONTRAST, brightness=10.0, contrast=20.0)
+        else:
+            layer.blend_mode = mode
+            waves = [np.sin(xx * fx * (2 + c + k) + yy * fy * (3 * c - 4 + k) + k)
+                     for c in range(4)]
+            px = np.stack([(v + 1.0) * 110.0 for v in waves], axis=-1)
+            px += rng.integers(0, 24, (h, w, 4))
+            px = np.clip(px, 0, 255).astype(np.uint8)
+            if k == 0:
+                px[:, : w // 2, 3] = 255  # opaque left half
+            if k in (1, 2):
+                px[y0:y1, x0:x1] = (40 + 90 * k, 160, 90, 255)
+            layer.pixels = px
+        doc.layers.append(layer)
+    ramp = (xx / w * 180 + yy / h * 60).astype(np.uint8)
+    doc.layers[1].mask = np.where((xx + yy) % 97 < 20, 255, ramp).astype(np.uint8)
+    if n_layers > 5:
+        doc.layers[5].folder_id = 1
+    doc.active_layer_index = 2
+    return doc
+
+
+def document_steps(m, kw):
+    """The edits of the document path, in order, as (name, fn(project,
+    clipboard)); each fn pushes its command to project.history (a
+    SnapshotCommand unless a lighter command covers the edit, as the JAX
+    package's tests push them).  `m` holds the modules (port_modules(), or
+    the JAX package's by the same names); `kw` is passed to every call that
+    does device work: {"device": dev} for the port, {} for the JAX
+    package."""
+    sel, co, ct = m.selection, m.canvas_ops, m.canvas_transform
+    fill, cr, hist = m.fill, m.color_removal, m.history
+    mode = sel.SelectionMode
+
+    def snapshot(name, edit):
+        def step(p, clip):
+            cmd = hist.SnapshotCommand(name, p.canvas)
+            edit(p.canvas, clip)
+            cmd.finalize(p.canvas)
+            p.history.push(cmd)
+        return name, step
+
+    def select(name, fn):
+        return snapshot(name, lambda c, clip: setattr(c, "selection", fn(c)))
+
+    def seed(c, dy=3, dx=3):
+        y0, _, x0, _ = _flat_box(c.height, c.width)
+        return x0 + dx, y0 + dy
+
+    def combine(c, new, how):
+        return sel.combine(c.selection, new, how, c.width, c.height)
+
+    def bucket(p, clip):
+        layer = p.canvas.layers[1]
+        before = layer.pixels
+        after = fill.bucket_fill(before, *seed(p.canvas), (250, 30, 200, 255), 20.0, **kw)
+        layer.pixels = after
+        p.history.push(hist.PixelPatch("bucket fill", 1, before, after))
+
+    def add_layer(name, make):
+        def step(p, clip):
+            prev = p.canvas.active_layer_index
+            idx = make(p.canvas, clip)
+            p.history.push(hist.LayerOpCommand(name, "add", idx, p.canvas.layers[idx],
+                                               prev, idx))
+        return name, step
+
+    def color_to_alpha(p, clip):
+        layer = p.canvas.layers[0]
+        before = layer.pixels
+        after = cr.color_to_alpha(before, cr.ColorToAlphaSettings(
+            target=(110, 110, 110), tolerance=40.0, softness=60.0))
+        layer.pixels = after
+        p.history.push(hist.SingleLayerSnapshotCommand("color to alpha", 0, before, after))
+
+    def crop(c, clip):
+        w, h = c.width, c.height
+        c.selection = sel.rect_mask(w, h, w // 8, h // 6, w * 7 // 8, h * 5 // 6)
+        ct.crop_to_selection(c)
+
+    return [
+        select("ellipse", lambda c: combine(c, sel.ellipse_mask(
+            c.width, c.height, c.width * 0.45, c.height * 0.5, c.width * 0.3,
+            c.height * 0.35), mode.REPLACE)),
+        select("rect add", lambda c: combine(c, sel.rect_mask(
+            c.width, c.height, c.width // 10, c.height // 10, c.width // 3,
+            c.height // 2), mode.ADD)),
+        select("feather", lambda c: sel.feather(c.selection, 3.0)),
+        select("expand", lambda c: sel.expand(c.selection, 2)),
+        select("contract", lambda c: sel.contract(c.selection, 3)),
+        select("color range", lambda c: sel.select_color_range(
+            c.layers[2].pixels, 120.0, 40.0, 0.1, 0.5, base=c.selection, mode=mode.ADD)),
+        select("magic wand", lambda c: combine(c, fill.magic_wand_mask(
+            c.layers[2].pixels, *seed(c), 12.0, True, True, True, "perceptual", **kw),
+            mode.ADD)),
+        ("bucket fill", bucket),
+        snapshot("mask from selection", lambda c, clip: co.add_layer_mask_from_selection(c, 2)),
+        snapshot("invert mask", lambda c, clip: co.invert_layer_mask(c, 2)),
+        add_layer("duplicate layer", lambda c, clip: co.duplicate_layer(c, 2)),
+        snapshot("merge down as mask", lambda c, clip: co.merge_down_as_mask(c, 3)),
+        ("copy", lambda p, clip: clip.copy(p.canvas)),
+        snapshot("cut", lambda c, clip: clip.cut(c, 1)),
+        add_layer("paste as layer", lambda c, clip: clip.paste_as_layer(c)),
+        ("color to alpha", color_to_alpha),
+        select("flood select", lambda c: cr.flood_select(
+            c.layers[2].pixels, *seed(c, 5, 5), 15.0, **kw)),
+        snapshot("flip selected", lambda c, clip: ct.flip_canvas_horizontal(c)),
+        select("select none", lambda c: None),
+        snapshot("rotate 90 cw", lambda c, clip: ct.rotate_canvas_90cw(c)),
+        snapshot("rotate 17.5 bilinear",
+                 lambda c, clip: ct.rotate_canvas_arbitrary(c, 17.5, "bilinear", **kw)),
+        snapshot("rotate -30 nearest",
+                 lambda c, clip: ct.rotate_canvas_arbitrary(c, -30.0, "nearest", **kw)),
+        snapshot("merge down", lambda c, clip: co.merge_down(c, 3, **kw)),
+        snapshot("crop", crop),
+    ]
+
+
+def document_differences(a, b):
+    """What differs between two documents of the port (an empty list when
+    they are the same): dims, active layer, selection, folders, and each
+    layer's state, pixels and mask."""
+    import numpy as np
+
+    def arr(x):
+        return None if x is None else np.asarray(x)
+
+    def same(x, y):
+        x, y = arr(x), arr(y)
+        return (x is None) == (y is None) and (
+            x is None or (x.shape == y.shape and np.array_equal(x, y)))
+
+    out = []
+    for field in ("width", "height", "active_layer_index"):
+        if getattr(a, field) != getattr(b, field):
+            out.append(f"{field} {getattr(a, field)} != {getattr(b, field)}")
+    if not same(a.selection, b.selection):
+        out.append("selection")
+    if [(f.id, f.name, f.visible) for f in a.folders] != \
+            [(f.id, f.name, f.visible) for f in b.folders]:
+        out.append("folders")
+    if len(a.layers) != len(b.layers):
+        return out + [f"{len(a.layers)} layers != {len(b.layers)}"]
+    for k, (x, y) in enumerate(zip(a.layers, b.layers)):
+        for field in ("name", "visible", "opacity", "mask_enabled", "folder_id", "content"):
+            if getattr(x, field) != getattr(y, field):
+                out.append(f"layer {k} {field}")
+        if int(x.blend_mode) != int(y.blend_mode):
+            out.append(f"layer {k} blend_mode")
+        if not same(x.pixels, y.pixels):
+            out.append(f"layer {k} pixels")
+        if not same(x.mask, y.mask):
+            out.append(f"layer {k} mask")
+    return out
+
+
+def _raster_runs(doc):
+    """K-composite launches of one flatten of `doc`: one a run of visible
+    raster layers between adjustment layers (up to 32 layers a launch)."""
+    runs, n = 0, 0
+    for _, layer in doc.visible_layers():
+        if layer.content == "adjustment" and layer.adjustment is not None:
+            runs += -(-n // 32)
+            n = 0
+        else:
+            n += 1
+    return runs + -(-n // 32)
+
+
+def drive_document_path(dev, tmp, card):
+    """The document-editing path at 3840x2160 on a six-layer document
+    (editing_document; a .pfe keeps no masks, so the path makes its own
+    from the selection and rotates it): Project.open of a .pfe, the
+    edits of document_steps on the card, each pushed to the project's
+    history, with launch counts from 0; the same edits on a second copy
+    through the plain versions on the card (_plain_kernels, _plain_fold),
+    every layer and mask held equal after each step; undo to the start
+    (equal to the opened document) and redo to the end; then
+    composite_viewport, composite_lod, soft_proof_cmyk of the composite,
+    flatten, Project.save to .pfe and .png and a reopen of the .pfe, each
+    equal to the plain route's.  K-warp must launch once (the bilinear
+    rotation: every layer and mask in one batch) and K-composite once for
+    merge_down and once a raster run for each flatten; no other kernel.
+    Prints each stage's wall time.  Returns the launch counts of the path."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from paintfe_tpu_torch.core.history import HistoryManager
+    from paintfe_tpu_torch.core.mirror import soft_proof_cmyk
+    from paintfe_tpu_torch.core.project import Project
+    from paintfe_tpu_torch.io.pfe import load_pfe, save_pfe
+    from paintfe_tpu_torch.ops import canvas_ops, canvas_transform
+    from paintfe_tpu_torch.ops.clipboard import Clipboard
+
+    root = tmp / "document"
+    root.mkdir(parents=True)
+    src = root / "doc.pfe"
+    save_pfe(editing_document(np.random.default_rng(9), *UHD), str(src))
+
+    busy_ms = {}
+
+    def timed(fn, tag=None):
+        """fn's result and wall ms; with a tag, the device's busy ms in
+        that window (a torch.profiler trace of the card) go to busy_ms."""
+        with (profile(activities=[ProfilerActivity.CUDA]) if tag
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        if tag:
+            busy_ms[tag] = _device_us(prof)[0] / 1e3
+        return out, ms
+
+    def check(what, a, b):
+        diff = document_differences(a, b)
+        if diff:
+            raise CheckFailed(f"document path, {what}: the card's document differs from "
+                              f"the plain route's: {diff}")
+
+    # the plain route's project keeps no history (max_entries=0)
+    plain = Project.open(src, device=dev)
+    plain.history = HistoryManager(max_entries=0)
+    _reset_counts()
+    proj, open_ms = timed(lambda: Project.open(src, device=dev))
+    proj.history = HistoryManager(max_entries=50, memory_limit_bytes=64 << 30)
+    check("open", proj.canvas, plain.canvas)
+    clip, plain_clip = Clipboard(), Clipboard()
+    stage_ms = {"open": open_ms}
+    steps = document_steps(port_modules(), {"device": dev})
+    for name, step in steps:
+        _, ms = timed(lambda: step(proj, clip), name)
+        with _plain_kernels(), _plain_fold():
+            step(plain, plain_clip)
+        check(name, proj.canvas, plain.canvas)
+        stage_ms[name] = ms
+    torch.cuda.synchronize()
+    edited = _counts()
+    pushed = len(proj.history.undo_stack)
+    if pushed != len(steps) - 1:  # every step but the copy pushes one command
+        raise CheckFailed(f"document path: {pushed} commands in the history after "
+                          f"{len(steps)} steps")
+    undos, undo_ms = timed(lambda: sum(1 for _ in iter(
+        lambda: proj.history.undo(proj.canvas), False)))
+    check("undo to the start", proj.canvas, load_pfe(str(src)))
+    redos, redo_ms = timed(lambda: sum(1 for _ in iter(
+        lambda: proj.history.redo(proj.canvas), False)))
+    check("redo to the end", proj.canvas, plain.canvas)
+    if undos != pushed or redos != pushed:
+        raise CheckFailed(f"document path: {undos} undos and {redos} redos of {pushed}")
+    stage_ms.update({"undo to the start": undo_ms, "redo to the end": redo_ms})
+    print(f"  document: {len(steps)} edits, {pushed} commands in the history "
+          f"({proj.history.memory_bytes() / 2**30:.2f} GiB), undone and redone; every "
+          "layer and mask equals the plain route's after each")
+
+    c = proj.canvas
+    runs = _raster_runs(c)
+    h, w = c.height, c.width
+    rect = (w // 5, h // 7, w * 3 // 4, h * 2 // 3)
+    outputs = {}
+    for tag, doc, ctx in (("card", c, contextlib.nullcontext), ("plain", plain.canvas,
+                                                                 _plain_fold)):
+        with ctx():
+            on_card = tag == "card"
+            view, view_ms = timed(lambda: canvas_transform.composite_viewport(
+                doc, rect, device=dev), on_card and "composite_viewport")
+            lod, lod_ms = timed(lambda: canvas_transform.composite_lod(doc, device=dev),
+                                on_card and "composite_lod")
+            proof, proof_ms = timed(lambda: soft_proof_cmyk(doc.composite(device=dev)),
+                                    on_card and "soft proof (its flatten included)")
+        outputs[tag] = (view, lod, proof)
+        if tag == "card":
+            stage_ms.update({"composite_viewport": view_ms, "composite_lod": lod_ms,
+                             "soft proof (its flatten included)": proof_ms})
+    for name, got, want in zip(("viewport", "LOD", "soft proof"), outputs["card"],
+                               outputs["plain"]):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise CheckFailed(f"document path: the {name} differs from the plain route's")
+    _, stage_ms["flatten"] = timed(lambda: canvas_ops.flatten(c, device=dev), "flatten")
+    with _plain_fold():
+        canvas_ops.flatten(plain.canvas, device=dev)
+    check("flatten", c, plain.canvas)
+    _, stage_ms["save .pfe"] = timed(lambda: proj.save(root / "out.pfe"))
+    _, stage_ms["save .png"] = timed(lambda: proj.save(root / "out.png"), "save .png")
+    plain.save(root / "plain.pfe")
+    with _plain_fold():
+        plain.save(root / "plain.png")
+    torch.cuda.synchronize()
+    counts = _counts()
+    for a, b in (("out.pfe", "plain.pfe"), ("out.png", "plain.png")):
+        if (root / a).read_bytes() != (root / b).read_bytes():
+            raise CheckFailed(f"document path: {a} differs from the plain route's {b}")
+    reopened, stage_ms["reopen .pfe"] = timed(lambda: Project.open(root / "out.pfe",
+                                                                   device=dev))
+    check("reopen", reopened.canvas, plain.canvas)
+    with _plain_fold():
+        flat = plain.canvas.composite(device=dev)
+    if not np.array_equal(np.asarray(Image.open(root / "out.png")), flat):
+        raise CheckFailed("document path: out.png differs from the plain route's "
+                          "composite of the flattened document")
+    print(f"  ok  document: viewport {outputs['card'][0].shape[:2]}, LOD "
+          f"{outputs['card'][1].shape[:2]}, soft proof, flatten, out.pfe and out.png "
+          "equal the plain route's; the reopened .pfe equals the flattened document")
+
+    # K-composite: merge_down once, one launch a raster run for each of the
+    # viewport's, the LOD's, the soft proof's and the flatten's composite,
+    # and once for the .png save's flatten of the one remaining layer
+    want = {name: 0 for name in counts}
+    want["gather_bilinear_u8"] = 1
+    want["composite_stack_kernel"] = 1 + 4 * runs + 1
+    print(f"  document launches: edits {edited}, the whole path {counts} "
+          f"(expected {want}: {runs} raster runs a flatten of the edited document)")
+    if counts != want:
+        raise CheckFailed(f"document path: launches {counts}, expected {want}")
+    print(f"  document stages at {UHD[1]}x{UHD[0]}, wall ms (device busy ms, from a "
+          f"torch.profiler trace of the stage, where the stage touches the card) "
+          f"[card: {card}]:")
+    for name, ms in stage_ms.items():
+        busy = f" (device busy {busy_ms[name]:.3f})" if name in busy_ms else ""
+        print(f"    {name}: {ms:.1f}{busy}")
+    wall = sum(stage_ms[name] for name in busy_ms)
+    print(f"  document: the card was busy {sum(busy_ms.values()):.1f} ms of the "
+          f"{wall:.1f} ms those stages took ({sum(busy_ms.values()) / wall * 100:.2f}%), "
+          f"{sum(stage_ms.values()) / 1e3:.1f} s of stages in all [card: {card}]")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1770,17 +2178,7 @@ def profile_flatten(dev, doc):
         doc.composite(device=dev)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    busy = kernel = 0.0
-    for e in prof.key_averages():
-        # kernels and copies only: a host op's row repeats its kernels' time
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        busy += us
-        if "composite_kernel" in e.key:
-            kernel += us
+    busy, kernel = _device_us(prof, "composite_kernel")
     device = (f"in one traced flatten of {traced_ms:.3f} ms wall, device busy "
               f"{busy / 1e3:.3f} ms ({busy / 1e3 / traced_ms * 100:.1f}% of it, copies "
               f"included), K-composite {kernel / 1e3:.3f} ms" if busy
@@ -1789,6 +2187,25 @@ def profile_flatten(dev, doc):
           f"{flatten_ms:.3f} ms wall; alone: active-tile mask on the card {mask_ms:.3f} ms "
           f"(the host definition: {host_mask_ms:.3f} ms), {len(rasters)} layer uploads "
           f"{upload_ms:.3f} ms; {device}")
+
+
+def _device_us(prof, name=""):
+    """Device time in a torch.profiler trace, in us: every kernel's and
+    copy's, and those whose name holds `name`."""
+    import torch
+
+    busy = named = 0.0
+    for e in prof.key_averages():
+        # kernels and copies only: a host op's row repeats its kernels' time
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        busy += us
+        if name and name in e.key:
+            named += us
+    return busy, named
 
 
 def _time_ms(fn, runs=TIMED_RUNS):
@@ -1974,7 +2391,7 @@ def time_cases(dev, gen, card):
         note = "".join(f", {k} {v:.3f}" for k, v in extra.get(name, {}).items())
         if name in library:
             row["library_ms"] = _time_ms(library[name])
-            note += f", F.grid_sample f32 border {row['library_ms']:.4f} ms"
+            note += f", F.grid_sample f32 {row['library_ms']:.4f} ms"
         result.append(row)
         print(f"  {name}: {ms:.4f} ms (queued {queued:.4f} ms), bound {bound_ms:.4f} ms "
               f"by {bound_by} ({bound_ms / ms * 100:.1f}% of it){note} [card: {card}]")
@@ -1998,7 +2415,8 @@ def _l2_sector_mb(sx, sy, hs, ws, images):
 def _warp_cases(gen, dev, img, batch, cases):
     """K-warp's timed cases, appended to `cases`: both modes on the bulge
     0.5 field and on the random field that reaches outside the source, one
-    3840x2160 frame and a batch of BATCH.  Returns each case's yardstick
+    3840x2160 frame and a batch of BATCH, and the document path's rotation
+    batch.  Returns each case's yardstick
     (F.grid_sample, f32, border, align_corners: clamp mode's function) and,
     for the random field, the taps' L2 sector traffic: its taps land
     anywhere in the 33 MB source, which L2 (50 MB) holds, so its bound stays
@@ -2031,6 +2449,22 @@ def _warp_cases(gen, dev, img, batch, cases):
                     planar, grid_n, mode="bilinear", padding_mode="border", align_corners=True))
                 if field.startswith("random"):
                     extra[name] = {"l2_sector_mb": _l2_sector_mb(sx, sy, h, w, n)}
+    # the document path's bilinear rotation: the six layers and one mask of
+    # a portrait canvas (3840x2160 after its 90-degree turn) in one batch;
+    # yardstick: F.grid_sample with zero padding
+    from paintfe_tpu_torch.ops.transform import _affine_map, _affine_params
+
+    n, rh, rw = 7, w, h
+    rot = torch.randint(0, 256, (n, rh, rw, 4), generator=gen, dtype=torch.uint8).to(dev)
+    rx, ry, _ = _affine_map(_affine_params(17.5, 0.0, 0.0, 1.0, 0.0, 0.0, rw, rh), rw, rh, dev)
+    name = f"K-warp zero, 17.5-degree rotation field [{n},{rh},{rw},4]"
+    cases.append((name, lambda: gather_bilinear_u8(rot, rx, ry, "zero"),
+                  _bound(2 * frame * n + 8 * px, 52 * px * n, F32_OPS_PER_S)))
+    rot_planar = rot.permute(0, 3, 1, 2).float().contiguous()
+    rot_grid = torch.stack([rx / (rw - 1) * 2 - 1, ry / (rh - 1) * 2 - 1], -1)[None]
+    rot_grid = rot_grid.expand(n, -1, -1, -1).contiguous()
+    library[name] = lambda: F.grid_sample(rot_planar, rot_grid, mode="bilinear",
+                                          padding_mode="zeros", align_corners=True)
     return library, extra
 
 
@@ -2298,7 +2732,7 @@ def main() -> int:
         check_streams(dev)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
-            phases = drive_main_paths(dev, gen, pathlib.Path(tmp))
+            phases = drive_main_paths(dev, gen, pathlib.Path(tmp), card)
             time_input_stages(dev, pathlib.Path(tmp) / "inputs", card)
         times = time_kernels(dev, gen, card)
         time_effects(dev, gen, card)

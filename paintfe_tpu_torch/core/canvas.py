@@ -14,6 +14,7 @@ across.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import sys
 from typing import Any, Callable, List, Optional, Tuple
@@ -90,6 +91,23 @@ class Layer:
     @property
     def width(self) -> int:
         return self.pixels.shape[1]
+
+    def clone(self) -> "Layer":
+        """A copy with value semantics, like the Rust Layer Clone: the
+        pixels, the mask and every optional payload (deep buffer,
+        adjustment, text, metadata) are copied, since edit paths mutate
+        payloads in place and a snapshot sharing one would change with the
+        live layer."""
+        return dataclasses.replace(
+            self,
+            pixels=self.pixels.copy(),
+            mask=None if self.mask is None else self.mask.copy(),
+            deep_pixels=copy.deepcopy(self.deep_pixels),
+            adjustment=copy.deepcopy(self.adjustment),
+            text_data=copy.deepcopy(self.text_data),
+            hdr_metadata=copy.deepcopy(self.hdr_metadata),
+            source_metadata=copy.deepcopy(self.source_metadata),
+        )
 
 
 @dataclasses.dataclass

@@ -1,12 +1,15 @@
 """Flips and rotations, exact permutations of u8 [..., H, W, 4] images,
-the image-crate resize, the canvas resize and the displacement warp
-(paintfe_tpu.ops.transform's flips, rotations, resize, resize_canvas and
-warp_displacement).
+the image-crate resize, the canvas resize, the displacement warp and the
+affine transform (paintfe_tpu.ops.transform's flips, rotations, resize,
+resize_canvas, warp_displacement, apply_affine and rotate_arbitrary).
 
 The permutations work on numpy arrays (the script host's pixel buffer) and
 on torch tensors of any leading batch shape (the batch pipeline).  Resize
 and resize_canvas are host numpy in the JAX package and are copied here as
-host numpy, so they come out identical to it.
+host numpy, so they come out identical to it.  The affine transform takes
+its coefficients on the host (numpy f32, as the JAX package) and maps and
+gathers on a torch device: K-warp for bilinear, a plain gather for
+nearest.
 """
 
 from __future__ import annotations
@@ -183,3 +186,149 @@ def resize_canvas(img, new_w: int, new_h: int, anchor=(0, 0), fill=(0, 0, 0, 0))
     if cw > 0 and ch > 0:
         out[dy0 : dy0 + ch, dx0 : dx0 + cw] = img[sy0 : sy0 + ch, sx0 : sx0 + cw]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Affine / perspective transform
+# ---------------------------------------------------------------------------
+
+# coordinates beyond +-2^24 lie outside any source; they are clamped there
+# so that K-warp's float-to-int conversion and torch's agree
+_COORD_LIMIT = float(1 << 24)
+
+
+def _invert_3x3(m):
+    a, b, c = m[0]
+    d, e, fv = m[1]
+    g, h, i = m[2]
+    det = a * (e * i - fv * h) - b * (d * i - fv * g) + c * (d * h - e * g)
+    if abs(det) < 1e-12:
+        return np.eye(3, dtype=f32)
+    inv = f32(1.0) / det
+    return np.array(
+        [
+            [(e * i - fv * h) * inv, (c * h - b * i) * inv, (b * fv - c * e) * inv],
+            [(fv * g - d * i) * inv, (a * i - c * g) * inv, (c * d - a * fv) * inv],
+            [(d * h - e * g) * inv, (b * g - a * h) * inv, (a * e - b * d) * inv],
+        ],
+        f32,
+    )
+
+
+def _affine_params(rotation_z, rotation_x, rotation_y, scale, offset_x,
+                   offset_y, canvas_w, canvas_h) -> np.ndarray:
+    """Host-side f32 homography coefficients -> f32[12] parameter vector
+    [h00..h22, offset_x, offset_y, inv_scale], in the Rust f32 sequence
+    (numpy's f32 sin and cos of the angles, as the JAX package takes
+    them)."""
+    inv_scale = f32(1.0) / f32(scale) if abs(scale) > 1e-6 else f32(1.0)
+    focal = f32(max(canvas_w, canvas_h)) * f32(1.5)
+
+    def rad(d):
+        return f32(f32(d) * (f32(np.pi) / f32(180.0)))
+
+    sz, cz = f32(np.sin(rad(rotation_z))), f32(np.cos(rad(rotation_z)))
+    sxr, cxr = f32(np.sin(rad(rotation_x))), f32(np.cos(rad(rotation_x)))
+    syr, cyr = f32(np.sin(rad(rotation_y))), f32(np.cos(rad(rotation_y)))
+
+    r00 = cz * cyr
+    r01 = cz * syr * sxr - sz * cxr
+    r10 = sz * cyr
+    r11 = sz * syr * sxr + cz * cxr
+    r20 = -syr
+    r21 = cyr * sxr
+
+    hmat = np.array(
+        [[focal * r00, focal * r01, 0.0], [focal * r10, focal * r11, 0.0], [r20, r21, focal]],
+        f32,
+    )
+    hi = _invert_3x3(hmat)
+    return np.array([hi[0][0], hi[0][1], hi[0][2],
+                     hi[1][0], hi[1][1], hi[1][2],
+                     hi[2][0], hi[2][1], hi[2][2],
+                     offset_x, offset_y, inv_scale], f32)
+
+
+def _affine_map(params: np.ndarray, canvas_w: int, canvas_h: int, dev):
+    """(src_x, src_y, degenerate) on `dev`: the inverse map of every output
+    pixel of a canvas_w x canvas_h canvas, in the JAX package's f32 order
+    (h00 * u + (h01 * v + h02), one reciprocal of wq, multiplies; separate
+    torch ops, so nothing contracts into an FMA).  A degenerate pixel
+    (|wq| < 1e-8) is given a coordinate outside any source; coordinates
+    are clamped to +-2^24."""
+    from paintfe_tpu_torch.ops.common import coord_grids
+
+    (h00, h01, h02, h10, h11, h12, h20, h21, h22,
+     offset_x, offset_y, inv_scale) = torch.from_numpy(params).to(dev).unbind(0)
+    cx = torch.tensor(f32(canvas_w) * f32(0.5), device=dev)
+    cy = torch.tensor(f32(canvas_h) * f32(0.5), device=dev)
+    xs, ys = coord_grids(canvas_h, canvas_w, dev)
+    u = (xs[:1] - cx - offset_x) * inv_scale  # [1, W]
+    v = (ys[:, :1] - cy - offset_y) * inv_scale  # [H, 1]
+    wq = h20 * u + (h21 * v + h22)
+    degenerate = torch.abs(wq) < torch.tensor(f32(1e-8), device=dev)
+    # 1 / wq as a true divide of two device tensors (a divide by a host
+    # scalar would be a multiply by its reciprocal on the card)
+    inv_w = torch.ones((), device=dev) / torch.where(degenerate, 1.0, wq)
+
+    def coord(a, b, c, centre):
+        t = torch.clamp((a * u + (b * v + c)) * inv_w + centre, -_COORD_LIMIT, _COORD_LIMIT)
+        return torch.where(degenerate, -_COORD_LIMIT, t).contiguous()
+
+    return coord(h00, h01, h02, cx), coord(h10, h11, h12, cy), degenerate
+
+
+def _affine_fn(canvas_w, canvas_h, src_h, src_w, nearest):
+    """run(src, params): _affine_map on src's device, then the gather:
+    K-warp in mode "zero" for bilinear, a plain gather for nearest (both
+    make a degenerate pixel transparent: its coordinate lies outside the
+    source)."""
+
+    def run(src: torch.Tensor, params: np.ndarray) -> torch.Tensor:
+        from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
+
+        src_x, src_y, _ = _affine_map(params, canvas_w, canvas_h, src.device)
+        if not nearest:
+            return gather_bilinear_u8(src, src_x, src_y, "zero")
+        nx = (torch.sign(src_x) * torch.floor(torch.abs(src_x) + 0.5)).to(torch.int32)
+        ny = (torch.sign(src_y) * torch.floor(torch.abs(src_y) + 0.5)).to(torch.int32)
+        inb = (nx >= 0) & (ny >= 0) & (nx < src_w) & (ny < src_h)
+        out = src[..., torch.clamp(ny, 0, src_h - 1).long(),
+                  torch.clamp(nx, 0, src_w - 1).long(), :]
+        return torch.where(inb[..., None], out, 0)
+
+    return run
+
+
+def apply_affine(img, rotation_z=0.0, rotation_x=0.0, rotation_y=0.0, scale=1.0,
+                 offset=(0.0, 0.0), canvas_size=None, interpolation="bilinear",
+                 device="cuda") -> torch.Tensor:
+    """Inverse-mapped Rz*Ry*Rx homography with focal 1.5*max(w,h) perspective,
+    center-anchored; out-of-source samples transparent (transform.rs:826-976).
+    Rotation args are in degrees.  img: u8 [Hs, Ws, 4] or a batch
+    [B, Hs, Ws, 4] sharing one map (numpy or torch), moved to `device`
+    (the card unless the caller passes "cpu"); returns a u8 tensor of the
+    output canvas (canvas_size = (w, h), default the source's) there."""
+    from paintfe_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    if not isinstance(img, torch.Tensor):
+        img = torch.from_numpy(np.ascontiguousarray(img, np.uint8))
+    img = img.to(dev)
+    src_h, src_w = img.shape[-3], img.shape[-2]
+    ch, cw = (src_h, src_w) if canvas_size is None else (canvas_size[1], canvas_size[0])
+    params = _affine_params(
+        float(rotation_z), float(rotation_x), float(rotation_y), float(scale),
+        float(offset[0]), float(offset[1]), cw, ch,
+    )
+    fn = _affine_fn(cw, ch, src_h, src_w, interpolation == "nearest")
+    return fn(img, params)
+
+
+def rotate_arbitrary(img, degrees: float, interpolation: str = "bilinear", device="cuda"):
+    """Whole-canvas rotation, canvas size unchanged (transform.rs:134-186);
+    `img` comes back as it is below 0.001 degrees."""
+    if abs(degrees) < 0.001:
+        return img
+    return apply_affine(img, rotation_z=degrees, interpolation=interpolation,
+                        device=device)

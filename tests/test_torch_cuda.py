@@ -701,3 +701,139 @@ def test_cli_on_deep_pdn_and_text_inputs_on_the_card_equals_the_cpu(dev, tmp_pat
         for name in names:
             assert ((tmp_path / f"c{fmt}" / name).read_bytes()
                     == (tmp_path / f"p{fmt}" / name).read_bytes()), name
+
+
+# -- the document-editing path: K-warp under apply_affine, K-composite under
+# merge_down and the LOD, the wand's plain torch on the card ------------------
+
+AFFINE_CASES = [dict(rotation_z=17.5), dict(rotation_z=-30.0), dict(rotation_z=45.0),
+                dict(rotation_z=90.0), dict(rotation_z=10.0, scale=1.7, offset=(3.5, -2.0)),
+                dict(rotation_z=5.0, canvas_size=(150, 70)),
+                dict(rotation_x=80.0, rotation_y=30.0), dict(rotation_y=-85.0, scale=0.5)]
+
+
+@pytest.mark.parametrize("interpolation", ["bilinear", "nearest"])
+@pytest.mark.parametrize("case", AFFINE_CASES, ids=str)
+def test_apply_affine_on_the_card_equals_the_cpu(dev, case, interpolation):
+    img = _img((3, 61, 97), 20, "cpu")
+    before = warp_kernel.gather_bilinear_u8.launches
+    got = tfm.apply_affine(img, interpolation=interpolation, device=dev, **case)
+    assert warp_kernel.gather_bilinear_u8.launches == before + (interpolation != "nearest")
+    want = tfm.apply_affine(img, interpolation=interpolation, device="cpu", **case)
+    assert torch.equal(got.cpu(), want)
+
+
+def _edit_doc(seed, h=72, w=96):
+    import chip_smoke
+
+    return chip_smoke.editing_document(np.random.default_rng(seed), h, w)
+
+
+@pytest.mark.parametrize("degrees,interpolation", [(17.5, "bilinear"), (-30.0, "nearest"),
+                                                   (90.0, "bilinear")])
+def test_rotate_canvas_arbitrary_on_the_card_equals_the_cpu(dev, degrees, interpolation):
+    from paintfe_tpu_torch.ops import canvas_transform as ct
+
+    a, b = _edit_doc(21), _edit_doc(21)
+    before = warp_kernel.gather_bilinear_u8.launches
+    ct.rotate_canvas_arbitrary(a, degrees, interpolation, device=dev)
+    # every layer and mask of the canvas in one batched launch
+    assert warp_kernel.gather_bilinear_u8.launches == before + (interpolation != "nearest")
+    ct.rotate_canvas_arbitrary(b, degrees, interpolation, device="cpu")
+    for x, y in zip(a.layers, b.layers):
+        assert np.array_equal(x.pixels, y.pixels)
+        assert (x.mask is None and y.mask is None) or np.array_equal(x.mask, y.mask)
+
+
+@pytest.mark.parametrize("mode", list(BlendMode))
+@pytest.mark.parametrize("opacity", [0.37, 1.0])
+def test_merge_down_on_the_card_equals_the_cpu(dev, mode, opacity):
+    from paintfe_tpu_torch.ops import canvas_ops
+
+    a, b = _edit_doc(22), _edit_doc(22)
+    for doc in (a, b):
+        doc.layers[2].blend_mode, doc.layers[2].opacity = mode, opacity
+    before = kernels.composite_stack_kernel.launches
+    canvas_ops.merge_down(a, 2, device=dev)
+    assert kernels.composite_stack_kernel.launches == before + 1
+    canvas_ops.merge_down(b, 2, device="cpu")
+    assert np.array_equal(a.layers[1].pixels, b.layers[1].pixels)
+
+
+def test_composite_lod_and_viewport_on_the_card_equal_the_cpu(dev):
+    from paintfe_tpu_torch.ops import canvas_transform as ct
+
+    doc = _edit_doc(23, 1100, 1300)
+    assert np.array_equal(ct.composite_lod(doc, device=dev), ct.composite_lod(doc, device="cpu"))
+    rect = (100, 200, 900, 1000)
+    assert np.array_equal(ct.composite_viewport(doc, rect, device=dev),
+                          ct.composite_viewport(doc, rect, device="cpu"))
+
+
+WAND_CARD_CASES = [(60, 45, 12.0, True, True, True, "perceptual"),
+                   (60, 45, 12.0, True, False, False, "perceptual"),
+                   (10, 10, 30.0, False, True, False, "perceptual"),
+                   (60, 45, 20.0, True, True, False, "legacy")]
+
+
+@pytest.mark.parametrize("case", WAND_CARD_CASES, ids=str)
+def test_magic_wand_on_the_card_equals_the_cpu(dev, case):
+    from paintfe_tpu_torch.ops import fill
+
+    img = _edit_doc(24).layers[2].pixels
+    assert np.array_equal(fill.magic_wand_mask(img, *case, device=dev),
+                          fill.magic_wand_mask(img, *case, device="cpu"))
+    for target in (img[50, 60], (0, 0, 0, 0)):
+        t = torch.from_numpy(img)
+        assert torch.equal(fill.perceptual_distance_map(t.to(dev), target).cpu(),
+                           fill.perceptual_distance_map(t, target))
+
+
+def test_bucket_fill_and_flood_select_on_the_card_equal_the_cpu(dev):
+    from paintfe_tpu_torch.ops import color_removal, fill
+
+    img = _edit_doc(25).layers[1].pixels
+    assert np.array_equal(fill.bucket_fill(img, 60, 45, (9, 8, 7, 255), 20.0, device=dev),
+                          fill.bucket_fill(img, 60, 45, (9, 8, 7, 255), 20.0, device="cpu"))
+    assert np.array_equal(color_removal.flood_select(img, 60, 45, 15.0, device=dev),
+                          color_removal.flood_select(img, 60, 45, 15.0, device="cpu"))
+
+
+def test_document_path_on_the_card_equals_the_cpu(dev, tmp_path):
+    """chip_smoke's document path at 128x96: every step on the card against
+    the same step on the CPU, then undo to the start and redo to the end."""
+    import chip_smoke
+    from paintfe_tpu_torch.core.project import Project
+    from paintfe_tpu_torch.io.pfe import save_pfe
+    from paintfe_tpu_torch.ops.clipboard import Clipboard
+
+    src = tmp_path / "doc.pfe"
+    save_pfe(chip_smoke.editing_document(np.random.default_rng(9), 96, 128), str(src))
+    card, host = Project.open(src, device=dev), Project.open(src, device="cpu")
+    clips = Clipboard(), Clipboard()
+    for (name, step), (_, cpu_step) in zip(
+            chip_smoke.document_steps(chip_smoke.port_modules(), {"device": dev}),
+            chip_smoke.document_steps(chip_smoke.port_modules(), {"device": "cpu"})):
+        step(card, clips[0])
+        cpu_step(host, clips[1])
+        assert chip_smoke.document_differences(card.canvas, host.canvas) == [], name
+    while card.history.undo(card.canvas):
+        pass
+    assert chip_smoke.document_differences(card.canvas, Project.open(src, "cpu").canvas) == []
+    while card.history.redo(card.canvas):
+        pass
+    assert chip_smoke.document_differences(card.canvas, host.canvas) == []
+
+
+def test_hsl_round_trip_on_the_card_equals_the_cpu(dev):
+    from paintfe_tpu_torch.core import colorspace
+
+    rgb = torch.from_numpy(np.random.default_rng(26).integers(0, 256, (3, 70000))
+                           .astype(np.float32) / np.float32(255.0))
+    rgb[:, :256] = torch.arange(256) / 255.0
+    host = colorspace.rgb_to_hsl(*rgb)
+    card = colorspace.rgb_to_hsl(*rgb.to(dev))
+    for a, b in zip(card, host):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(colorspace.hsl_to_rgb(*card), colorspace.hsl_to_rgb(*host)):
+        assert torch.equal(a.cpu(), b)
