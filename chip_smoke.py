@@ -25,14 +25,17 @@ It builds the port's CUDA kernels from csrc/, then:
      and K-pass (csrc/blur_pass.cu) against gaussian_blur_pass_plain, at
      widths around each limit of its groups and segments and below its
      radius, on both of its routes;
-  2. holds each of the 13 effect ops of the script API (EFFECT_OPS), and
-     resize (four filters) and resize_canvas, at 1920x1080 on the card
-     against the same op on the CPU, byte for byte; then runs two
+  2. holds each of the 13 effect ops of the script API (EFFECT_OPS),
+     resize (four filters) and resize_canvas, and each op of the menu path
+     under an elliptic selection (menu_op_table: the 27 adjustment
+     functions, the menu effects, the Liquify and mesh warps, the
+     gradients), at 1920x1080 on the card against the same op on the CPU,
+     byte for byte; then runs two
      execute_script_async workers at once, each on its own CUDA stream,
      blurring at different sigmas around a twist, 20 rounds at 1920x1080,
      each result held against the plain versions (K-blur's constant taps
      are shared by the streams);
-  3. drives six main paths and one entry call, each with every kernel
+  3. drives seven main paths and one entry call, each with every kernel
      launch count set to 0 just before it and read just after:
      - the headline path: the serial CLI (one 3840x2160 PNG, --device
        cuda) and the --shard CLI (two 3840x2160 and two 1920x1080 PNGs,
@@ -83,6 +86,22 @@ It builds the port's CUDA kernels from csrc/, then:
        K-warp launch and one K-composite launch for merge down and one a
        raster run for each flatten, no other kernel; each stage's wall
        time;
+     - the menu-edit path: a six-layer 3840x2160 .pfe through
+       Project.open and an elliptic selection, then each step of
+       menu_steps on the active layer under the selection, each pushed to
+       the history (the 27 adjustment functions, ops/luts feeding curves,
+       levels and the gradient map, and a histogram read; bokeh, zoom,
+       dents on K-warp, grid, canvas border, drop shadow on K-blur, pixel
+       drag, RGB displace, contours, the colour filter; four Liquify
+       strokes and the field's warp and a mesh warp of a displaced 4x3
+       grid, both on K-warp; a linear and a radial eraser gradient on a
+       new layer), every layer after each step held against a second copy
+       edited through the plain versions on the card; undo to the start,
+       redo to the end, flatten on K-composite and Project.save to .pfe
+       and .png; exactly MENU_WARPS K-warp launches, MENU_BLURS K-blur
+       launches and one K-composite launch a raster run of the flatten
+       and one for the .png save; the host turbulence fields' build time,
+       each step's wall time and the card's busy time;
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -100,8 +119,8 @@ It builds the port's CUDA kernels from csrc/, then:
      3840x2160 and beside one PyTorch call computing the same function
      where there is one, and each route beside its neighbour at the radii
      where ops/kernels.py hands over: CUDA events around one call, median
-     of 15 samples after warm-up; then each effect op at 3840x2160 (median
-     of 7).
+     of 15 samples after warm-up; then each effect op and each menu op at
+     3840x2160 (median of 7).
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}.  Any failed
@@ -989,7 +1008,7 @@ def _check_launched(tag, counts, names):
 
 def drive_main_paths(dev, gen, tmp, card):
     """The main paths (headline, spatial, layered, effects, inputs,
-    document) and K-pass's entry call, each with launch counts from 0.
+    document, menu) and K-pass's entry call, each with launch counts from 0.
     Returns each phase's launch counts, by phase."""
     import torch
 
@@ -1041,9 +1060,14 @@ def drive_main_paths(dev, gen, tmp, card):
     document = drive_document_path(dev, tmp, card)
     _check_launched("document", document, ("gather_bilinear_u8", "composite_stack_kernel"))
 
+    _reset_counts()
+    menu = drive_menu_path(dev, tmp, card)
+    _check_launched("menu", menu, ("gather_bilinear_u8", "gaussian_blur_fused",
+                                   "composite_stack_kernel"))
+
     entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
     return {"headline": headline, "spatial": spatial, "layered": layered,
-            "effects": effects, "inputs": inputs, "document": document,
+            "effects": effects, "inputs": inputs, "document": document, "menu": menu,
             "gaussian_blur_pallas entry call": entry}
 
 
@@ -1549,6 +1573,24 @@ def _raster_runs(doc):
     return runs + -(-n // 32)
 
 
+def _timed_stage(fn, busy_ms, tag=None):
+    """fn's result and its wall ms, ending in a device synchronise; with a
+    tag, the device's busy ms in that window (a torch.profiler trace of the
+    card) go to busy_ms[tag]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with (profile(activities=[ProfilerActivity.CUDA]) if tag
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    if tag:
+        busy_ms[tag] = _device_us(prof)[0] / 1e3
+    return out, ms
+
+
 def drive_document_path(dev, tmp, card):
     """The document-editing path at 3840x2160 on a six-layer document
     (editing_document; a .pfe keeps no masks, so the path makes its own
@@ -1567,7 +1609,6 @@ def drive_document_path(dev, tmp, card):
     import numpy as np
     import torch
     from PIL import Image
-    from torch.profiler import ProfilerActivity, profile
 
     from paintfe_tpu_torch.core.history import HistoryManager
     from paintfe_tpu_torch.core.mirror import soft_proof_cmyk
@@ -1584,17 +1625,7 @@ def drive_document_path(dev, tmp, card):
     busy_ms = {}
 
     def timed(fn, tag=None):
-        """fn's result and wall ms; with a tag, the device's busy ms in
-        that window (a torch.profiler trace of the card) go to busy_ms."""
-        with (profile(activities=[ProfilerActivity.CUDA]) if tag
-              else contextlib.nullcontext()) as prof:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-        if tag:
-            busy_ms[tag] = _device_us(prof)[0] / 1e3
-        return out, ms
+        return _timed_stage(fn, busy_ms, tag)
 
     def check(what, a, b):
         diff = document_differences(a, b)
@@ -1706,6 +1737,412 @@ def drive_document_path(dev, tmp, card):
     print(f"  document: the card was busy {sum(busy_ms.values()):.1f} ms of the "
           f"{wall:.1f} ms those stages took ({sum(busy_ms.values()) / wall * 100:.2f}%), "
           f"{sum(stage_ms.values()) / 1e3:.1f} s of stages in all [card: {card}]")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The menu-edit path: the Adjustments and Effects menus, the gradient tool,
+# Liquify and the mesh warp on the active layer of a document, each edit
+# one history command (tests/test_torch_menu_path.py runs the same steps
+# against the JAX package on the CPU)
+# ---------------------------------------------------------------------------
+
+MENU_CURVES = [([(0, 0), (64, 80), (190, 170), (255, 255)], True),
+               ([(0, 10), (255, 245)], True), ([(0, 0), (128, 150), (255, 255)], True),
+               ([], False), ([(0, 30), (255, 255)], True)]
+MENU_STOPS = [(0.0, (20, 10, 90, 255)), (0.4, (220, 80, 30, 255)),
+              (1.0, (250, 245, 200, 255))]
+# the selection: an ellipse (centre and radii in canvas widths and heights)
+# that reaches the left edge, so the canvas border edits the layer too
+MENU_ELLIPSE = (0.4, 0.5, 0.42, 0.45)
+MENU_BANDS = ((20, -30, 0, 45, -10, 5), (10, 0, -40, 20, 30, -15), (5, -5, 10, 0, -20, 15))
+# dents and contours, whose host turbulence fields the path times apart
+MENU_DENTS = (24.0, 0.6, 7, 2, 0.5, True, False)
+MENU_CONTOURS = (40.0, 6.0, 1.5, (0, 0, 0, 255), 9, 2, 0.6)
+# the menu ops in the path's order: (step name, module, function, its
+# arguments after the image, or a function of the luts module giving them);
+# each runs on the active layer under the selection.  "histogram" is a read.
+MENU_OPS = [
+    ("brightness contrast", "adjustments", "brightness_contrast", (10.0, 15.0)),
+    ("hue saturation lightness", "adjustments", "hue_saturation_lightness",
+     (30.0, 20.0, -10.0)),
+    ("hue saturation per band", "adjustments", "hue_saturation_per_band",
+     (10.0, 5.0, -5.0) + MENU_BANDS),
+    ("vibrance", "adjustments", "vibrance", (45.0,)),
+    ("color balance", "adjustments", "color_balance",
+     ((10.0, -5.0, 20.0), (0.0, 15.0, -10.0), (-20.0, 5.0, 30.0))),
+    ("temperature tint", "adjustments", "temperature_tint", (25.0, -12.0)),
+    ("exposure", "adjustments", "exposure", (0.4,)),
+    ("highlights shadows", "adjustments", "highlights_shadows", (40.0, -30.0)),
+    ("curves", "adjustments", "curves", (MENU_CURVES,)),
+    ("curves direct", "adjustments", "curves_direct", (MENU_CURVES[::-1],)),
+    ("rgb lut", "adjustments", "apply_rgb_lut", lambda luts: (luts.compose_luts(
+        luts.curves_lut(MENU_CURVES[0][0]), luts.stretch_lut(12, 240)),)),
+    ("rgba luts", "adjustments", "apply_rgba_luts", lambda luts: (
+        luts.multi_channel_luts(MENU_CURVES[1:] + MENU_CURVES[:1]),)),
+    ("levels", "adjustments", "levels", (10, 240, 1.3, 5, 250)),
+    ("levels direct", "adjustments", "levels_direct", (5, 250, 0.8, 0, 255)),
+    ("levels per channel", "adjustments", "levels_per_channel",
+     ((5, 250, 1.1, 0, 255), (0, 240, 0.9, 10, 250), (20, 255, 1.2, 0, 255),
+      (0, 255, 1.0, 30, 220))),
+    ("auto levels", "adjustments", "auto_levels", ()),
+    ("histogram", "adjustments", "histogram", ()),
+    ("invert colors", "adjustments", "invert_colors", ()),
+    ("posterize", "adjustments", "posterize", (6,)),
+    ("black and white", "adjustments", "black_and_white", (40.0, 40.0, 20.0)),
+    ("gradient map", "adjustments", "gradient_map",
+     lambda luts: (luts.gradient_map_lut(MENU_STOPS),)),
+    ("gradient map stops", "adjustments", "gradient_map_stops",
+     ([(0.1, (0, 60, 200, 255)), (0.9, (255, 230, 40, 255))],)),
+    ("desaturate", "adjustments", "desaturate", ()),
+    ("sepia", "adjustments", "sepia", ()),
+    ("desaturate bt601", "adjustments", "desaturate_bt601", ()),
+    ("threshold", "adjustments", "threshold", (110.0,)),
+    ("invert alpha", "adjustments", "invert_alpha", ()),
+    ("bokeh", "filters", "bokeh_blur", (6.0,)),
+    ("zoom", "filters", "zoom_blur", (0.45, 0.5, 0.3, 8, (1.0, 0.5, 0.2, 1.0), 0.3)),
+    ("dents", "distort", "dents", MENU_DENTS),
+    ("grid", "render", "grid", (64, 48, 2, (255, 255, 255, 255), 0, 0.5)),
+    ("canvas border", "render", "canvas_border", (12, (20, 20, 20, 255))),
+    ("drop shadow", "render", "drop_shadow", (12, 9, 6.0, True, (0, 0, 0, 200), 0.8)),
+    ("pixel drag", "glitch", "pixel_drag", (42, 40.0, 30, 20.0)),
+    ("rgb displace", "glitch", "rgb_displace", ((4, 0), (0, -3), (-5, 2))),
+    ("contours", "contours", "contours", MENU_CONTOURS),
+    ("color filter", "artistic", "color_filter", ((255, 128, 0, 255), 0.5, 3)),
+]
+# K-warp launches of the menu path (dents, the Liquify warp, the mesh warp)
+# and K-blur's (the drop shadow's alpha)
+MENU_WARPS = 3
+MENU_BLURS = 1
+# the Liquify strokes: (step name, brush, centre in canvas widths and
+# heights, deltas and radius in canvas widths, the brush's other arguments)
+MENU_STROKES = [
+    ("liquify push", "apply_push", (0.3, 0.4), (0.02, 0.01, 0.06), (0.8,)),
+    ("liquify expand", "apply_expand", (0.6, 0.5), (0.05,), (0.7,)),
+    ("liquify contract", "apply_contract", (0.45, 0.7), (0.05,), (0.9,)),
+    ("liquify twirl", "apply_twirl", (0.7, 0.3), (0.06,), (1.2, True)),
+]
+# the steps that push no command: a read and the strokes of the field
+MENU_READS = ("histogram",) + tuple(name for name, *_ in MENU_STROKES)
+
+
+def _menu_stroke(field, stroke, w, h):
+    """One of MENU_STROKES on a DisplacementField of a w x h canvas."""
+    _, brush, (fx, fy), sizes, rest = stroke
+    getattr(field, brush)(fx * w, fy * h, *[v * w for v in sizes], *rest)
+
+
+def _menu_mesh(transform, w, h):
+    """The mesh warp's control points on a w x h canvas: a uniform 4x3 grid
+    and the same grid with each point moved by up to w / 40 (seeded)."""
+    import numpy as np
+
+    orig = transform.uniform_grid(4, 3, w, h)
+    shift = np.random.default_rng(5).uniform(-1.0, 1.0, orig.shape).astype(np.float32)
+    return orig, (orig + shift * np.float32(w / 40)).astype(np.float32)
+
+
+def _menu_gradients(gradient, w, h):
+    """The gradient steps' arguments of render_gradient after (w, h): a
+    linear two-colour gradient, and a radial eraser of stops (its base is
+    the layer)."""
+    shape = gradient.GradientShape
+    return {
+        "linear gradient": dict(start=(w * 0.1, h * 0.2), end=(w * 0.8, h * 0.9),
+                                color_a=(250, 200, 20, 255), color_b=(20, 60, 230, 200),
+                                shape=shape.LINEAR),
+        "radial eraser gradient": dict(
+            start=(w * 0.5, h * 0.45), end=(w * 0.8, h * 0.6), shape=shape.RADIAL,
+            eraser=True, stops=[(0.0, (255, 255, 255, 255)), (0.6, (128, 128, 128, 160)),
+                                (1.0, (0, 0, 0, 0))]),
+    }
+
+
+def menu_modules():
+    """The port's modules of the menu path, by the names menu_steps reads
+    (the JAX package's modules carry the same names)."""
+    import types
+
+    from paintfe_tpu_torch.core import history, selection
+    from paintfe_tpu_torch.ops import adjustments, canvas_ops, filters, gradient, luts
+    from paintfe_tpu_torch.ops import transform
+    from paintfe_tpu_torch.ops.effects import artistic, contours, distort, glitch, render
+
+    return types.SimpleNamespace(
+        selection=selection, history=history, adjustments=adjustments, luts=luts,
+        canvas_ops=canvas_ops, filters=filters, gradient=gradient, transform=transform,
+        artistic=artistic, contours=contours, distort=distort, glitch=glitch,
+        render=render)
+
+
+def _host(x):
+    """An op's result as a host numpy array (a torch tensor on any device,
+    or a JAX array)."""
+    import numpy as np
+
+    if hasattr(x, "is_cuda"):
+        x = x.cpu()
+    return np.asarray(x)
+
+
+def menu_steps(m, kw):
+    """The edits of the menu path, in order, as (name, fn(project, state));
+    `state` is a dict a run keeps (the Liquify field, the histogram).  Each
+    adjustment and effect runs on the active layer under the selection and
+    pushes one SingleLayerSnapshotCommand (the reference's "filter apply");
+    the histogram is a read; the Liquify strokes change only the field,
+    which the Liquify warp applies.  `m` holds the modules (menu_modules(),
+    or the JAX package's by the same names); `kw` is passed to every call
+    that does device work: {"device": dev} for the port, {} for the JAX
+    package."""
+    import numpy as np
+
+    adj, luts, hist = m.adjustments, m.luts, m.history
+
+    def layer_op(name, fn):
+        """fn(pixels, selection, canvas, state) -> the active layer's new pixels"""
+        def step(p, state):
+            c = p.canvas
+            idx = c.active_layer_index
+            before = c.layers[idx].pixels
+            after = np.ascontiguousarray(_host(fn(before, c.selection, c, state)), np.uint8)
+            c.layers[idx].pixels = after
+            p.history.push(hist.SingleLayerSnapshotCommand(name, idx, before, after))
+        return name, step
+
+    def menu(name, op, *args):
+        """An op of the Adjustments or Effects menu under the selection"""
+        return layer_op(name, lambda px, sel, *_: op(px, *args, mask=sel, **kw))
+
+    def read_histogram(p, state):
+        c = p.canvas
+        state["histogram"] = _host(adj.histogram(c.layers[c.active_layer_index].pixels,
+                                                 mask=c.selection, **kw))
+
+    def select_ellipse(p, state):
+        c = p.canvas
+        cmd = hist.SnapshotCommand("ellipse", c)
+        cx, cy, rx, ry = MENU_ELLIPSE
+        c.selection = m.selection.ellipse_mask(c.width, c.height, c.width * cx,
+                                               c.height * cy, c.width * rx, c.height * ry)
+        cmd.finalize(c)
+        p.history.push(cmd)
+
+    def stroke(spec):
+        """A Liquify stroke of the run's field"""
+        def step(p, state):
+            c = p.canvas
+            if "field" not in state:
+                state["field"] = m.transform.DisplacementField(c.width, c.height)
+            _menu_stroke(state["field"], spec, c.width, c.height)
+        return spec[0], step
+
+    def mesh(px, sel, c, state):
+        orig, deformed = _menu_mesh(m.transform, c.width, c.height)
+        return m.transform.warp_mesh_catmull_rom(px, orig, deformed, 4, 3, **kw)
+
+    def new_layer(p, state):
+        c = p.canvas
+        prev = c.active_layer_index
+        idx = m.canvas_ops.add_layer(c, "gradient")
+        p.history.push(hist.LayerOpCommand("new layer", "add", idx, c.layers[idx], prev, idx))
+
+    def gradient(name):
+        def fn(px, sel, c, state):
+            spec = _menu_gradients(m.gradient, c.width, c.height)[name]
+            base = {"base": px} if spec.get("eraser") else {}
+            return m.gradient.render_gradient(c.width, c.height, **spec, **base, **kw)
+        return layer_op(name, fn)
+
+    steps = [("ellipse", select_ellipse)]
+    for name, module, op, args in MENU_OPS:
+        if name == "histogram":
+            steps.append(("histogram", read_histogram))
+            continue
+        fn = getattr(getattr(m, module), op)
+        steps.append(menu(name, fn, *(args(m.luts) if callable(args) else args)))
+    return steps + [stroke(spec) for spec in MENU_STROKES] + [
+        layer_op("liquify warp", lambda px, sel, c, state: m.transform.warp_displacement(
+            px, state["field"], **kw)),
+        layer_op("mesh warp", mesh),
+        ("new layer", new_layer),
+        gradient("linear gradient"),
+        gradient("radial eraser gradient"),
+    ]
+
+
+def menu_extra_ops(h, w):
+    """The menu path's ops beyond MENU_OPS, as (name, fn(img, mask)) on u8
+    [H, W, 4] tensors: the Liquify warp of four strokes' field, the mesh
+    warp of a displaced 4x3 grid, and the two gradients."""
+    from paintfe_tpu_torch.ops import gradient, transform
+
+    field = transform.DisplacementField(w, h)
+    for spec in MENU_STROKES:
+        _menu_stroke(field, spec, w, h)
+    orig, deformed = _menu_mesh(transform, w, h)
+    specs = _menu_gradients(gradient, w, h)
+    linear, radial = specs["linear gradient"], specs["radial eraser gradient"]
+    return [
+        ("liquify warp", lambda x, m: transform.warp_displacement(x, field)),
+        ("mesh warp", lambda x, m: transform.warp_mesh_catmull_rom(x, orig, deformed, 4, 3)),
+        ("linear gradient", lambda x, m: gradient.render_gradient(w, h, **linear,
+                                                                  device=x.device)),
+        ("radial eraser gradient", lambda x, m: gradient.render_gradient(w, h, **radial,
+                                                                         base=x)),
+    ]
+
+
+def menu_op_table(h, w):
+    """Every op of the menu path as (name, fn(img, mask)) on u8 [H, W, 4]
+    tensors (run where the tensor is)."""
+    m = menu_modules()
+    table = []
+    for name, module, op, args in MENU_OPS:
+        fn = getattr(getattr(m, module), op)
+        args = args(m.luts) if callable(args) else args
+        table.append((name, lambda x, mask, fn=fn, args=args: fn(x, *args, mask=mask)))
+    return table + menu_extra_ops(h, w)
+
+
+def _ellipse(h, w):
+    """The menu path's selection: u8 [H, W], 255 inside the ellipse."""
+    from paintfe_tpu_torch.core.selection import ellipse_mask
+
+    cx, cy, rx, ry = MENU_ELLIPSE
+    return ellipse_mask(w, h, w * cx, h * cy, w * rx, h * ry)
+
+
+def drive_menu_path(dev, tmp, card):
+    """The menu-edit path at 3840x2160 on a six-layer document
+    (editing_document): Project.open of a .pfe, an elliptic selection, then
+    each op of menu_steps on the card (the 27 adjustment functions, with
+    the histogram a read, the effects, four Liquify strokes and the field's
+    warp, a mesh warp, and a linear and a radial eraser gradient on a new
+    layer), each pushed to the project's history; the same steps on a
+    second copy through the plain versions on the card (_plain_kernels,
+    _plain_fold), every layer and the histogram held equal after each
+    step; undo to the start (equal to the opened document) and redo to the
+    end; flatten and Project.save to .pfe and .png, equal to the plain
+    route's.  Exact launches: K-warp MENU_WARPS (dents, the Liquify warp,
+    the mesh warp), K-blur MENU_BLURS (the drop shadow), K-composite one a
+    raster run of the flatten and one for the .png save; no other kernel.
+    Prints the time to build the host turbulence fields, each step's wall
+    ms and the card's busy ms.  Returns the launch counts of the path."""
+    import numpy as np
+    import torch
+
+    from paintfe_tpu_torch.core.history import HistoryManager
+    from paintfe_tpu_torch.core.project import Project
+    from paintfe_tpu_torch.io.pfe import load_pfe, save_pfe
+    from paintfe_tpu_torch.ops import canvas_ops
+    from paintfe_tpu_torch.ops.effects.contours import contours_noise
+    from paintfe_tpu_torch.ops.effects.distort import dents_noise
+
+    h, w = UHD
+    root = tmp / "menu"
+    root.mkdir(parents=True)
+    src = root / "doc.pfe"
+    save_pfe(editing_document(np.random.default_rng(11), h, w), str(src))
+
+    # the host turbulence fields, built once a parameter set (cached for the path)
+    dents_noise.cache_clear()
+    contours_noise.cache_clear()
+    t0 = time.perf_counter()
+    dents_noise(MENU_DENTS[0], MENU_DENTS[2], MENU_DENTS[3], MENU_DENTS[4], h, w)
+    dents_field_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    contours_noise(MENU_CONTOURS[0], MENU_CONTOURS[4], MENU_CONTOURS[5], h, w)
+    contours_field_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  menu: host turbulence fields at {w}x{h}: dents (two planes) "
+          f"{dents_field_ms:.1f} ms, contours {contours_field_ms:.1f} ms")
+
+    busy_ms = {}
+
+    def timed(fn, tag=None):
+        return _timed_stage(fn, busy_ms, tag)
+
+    def check(what, a, b):
+        diff = document_differences(a, b)
+        if diff:
+            raise CheckFailed(f"menu path, {what}: the card's document differs from the "
+                              f"plain route's: {diff}")
+
+    plain = Project.open(src, device=dev)
+    plain.history = HistoryManager(max_entries=0)
+    _reset_counts()
+    proj, open_ms = timed(lambda: Project.open(src, device=dev))
+    proj.history = HistoryManager(max_entries=100, memory_limit_bytes=64 << 30)
+    check("open", proj.canvas, plain.canvas)
+    state, plain_state = {}, {}
+    stage_ms = {"open": open_ms}
+    steps = menu_steps(menu_modules(), {"device": dev})
+    for name, step in steps:
+        _, ms = timed(lambda: step(proj, state), name)
+        with _plain_kernels(), _plain_fold():
+            step(plain, plain_state)
+        check(name, proj.canvas, plain.canvas)
+        stage_ms[name] = ms
+    if not np.array_equal(state["histogram"], plain_state["histogram"]):
+        raise CheckFailed("menu path: the histogram differs from the plain route's")
+    if not np.array_equal(state["field"].data, plain_state["field"].data):
+        raise CheckFailed("menu path: the Liquify field differs from the plain route's")
+    torch.cuda.synchronize()
+    edited = _counts()
+    pushed = len(proj.history.undo_stack)
+    reads = sum(1 for name, _ in steps if name in MENU_READS)
+    if pushed != len(steps) - reads:
+        raise CheckFailed(f"menu path: {pushed} commands in the history after "
+                          f"{len(steps)} steps ({reads} of them push none)")
+    undos, undo_ms = timed(lambda: sum(1 for _ in iter(
+        lambda: proj.history.undo(proj.canvas), False)))
+    check("undo to the start", proj.canvas, load_pfe(str(src)))
+    redos, redo_ms = timed(lambda: sum(1 for _ in iter(
+        lambda: proj.history.redo(proj.canvas), False)))
+    check("redo to the end", proj.canvas, plain.canvas)
+    if undos != pushed or redos != pushed:
+        raise CheckFailed(f"menu path: {undos} undos and {redos} redos of {pushed}")
+    stage_ms.update({"undo to the start": undo_ms, "redo to the end": redo_ms})
+    print(f"  menu: {len(steps)} steps, {pushed} commands in the history "
+          f"({proj.history.memory_bytes() / 2**30:.2f} GiB), undone and redone; every "
+          "layer equals the plain route's after each")
+
+    c = proj.canvas
+    runs = _raster_runs(c)
+    _, stage_ms["flatten"] = timed(lambda: canvas_ops.flatten(c, device=dev), "flatten")
+    with _plain_fold():
+        canvas_ops.flatten(plain.canvas, device=dev)
+    check("flatten", c, plain.canvas)
+    _, stage_ms["save .pfe"] = timed(lambda: proj.save(root / "out.pfe"))
+    _, stage_ms["save .png"] = timed(lambda: proj.save(root / "out.png"), "save .png")
+    plain.save(root / "plain.pfe")
+    with _plain_fold():
+        plain.save(root / "plain.png")
+    torch.cuda.synchronize()
+    counts = _counts()
+    for a, b in (("out.pfe", "plain.pfe"), ("out.png", "plain.png")):
+        if (root / a).read_bytes() != (root / b).read_bytes():
+            raise CheckFailed(f"menu path: {a} differs from the plain route's {b}")
+    print("  ok  menu: flatten, out.pfe and out.png equal the plain route's")
+
+    want = {name: 0 for name in counts}
+    want["gather_bilinear_u8"] = MENU_WARPS
+    want["gaussian_blur_fused"] = MENU_BLURS
+    want["composite_stack_kernel"] = runs + 1
+    print(f"  menu launches: edits {edited}, the whole path {counts} (expected {want}: "
+          f"{runs} raster runs in the flatten, one for the .png save)")
+    if counts != want:
+        raise CheckFailed(f"menu path: launches {counts}, expected {want}")
+    print(f"  menu stages at {w}x{h}, wall ms (device busy ms, from a torch.profiler "
+          f"trace of the stage) [card: {card}]:")
+    for name, ms in stage_ms.items():
+        busy = f" (device busy {busy_ms[name]:.3f})" if name in busy_ms else ""
+        print(f"    {name}: {ms:.1f}{busy}")
+    wall = sum(stage_ms[name] for name in busy_ms)
+    print(f"  menu: the card was busy {sum(busy_ms.values()):.1f} ms of the {wall:.1f} ms "
+          f"the traced stages took ({sum(busy_ms.values()) / wall * 100:.2f}%), "
+          f"{sum(stage_ms.values()) / 1e3:.1f} s of stages in all, host fields "
+          f"{(dents_field_ms + contours_field_ms) / 1e3:.1f} s [card: {card}]")
     return counts
 
 
@@ -2086,11 +2523,13 @@ def check_streams(dev, rounds=20):
 
 
 def check_effects(dev, gen):
-    """Each effect op of EFFECT_OPS at 1920x1080, and resize (all four
-    filters) and resize_canvas through a script context, on the card:
+    """Each effect op of EFFECT_OPS at 1920x1080, resize (all four filters)
+    and resize_canvas through a script context, and each op of the menu
+    path (menu_op_table) under an elliptic selection, on the card:
     byte-equal to the same op on the CPU (ROADMAP C2: transcendentals come
     from host tables and fields, so the devices agree)."""
     import numpy as np
+    import torch
 
     from paintfe_tpu_torch.parallel.pipeline import _OP_TABLE
     from paintfe_tpu_torch.scripting.engine import execute_script_sync
@@ -2115,19 +2554,39 @@ def check_effects(dev, gen):
             raise CheckFailed(f"resize {filt}: the card's result differs from the CPU's")
     print(f"  ok  {len(EFFECT_OPS)} effect ops, resize (4 filters, down and up) and "
           "resize_canvas")
+    mask_host = _ellipse(h, w)
+    mask = torch.from_numpy(mask_host).to(dev)
+    table = menu_op_table(h, w)
+    for name, fn in table:
+        got = fn(img, mask).cpu()
+        want = fn(host, torch.from_numpy(mask_host))
+        if not got.equal(want):
+            raise CheckFailed(f"menu op {name}: the card's result differs from the CPU's "
+                              f"({int((got != want).sum())} of {want.numel()} entries)")
+    print(f"  ok  {len(table)} menu ops under an elliptic selection (the adjustments, "
+          "effects, the Liquify and mesh warps, the gradients)")
 
 
 def time_effects(dev, gen, card):
-    """Each effect op of EFFECT_OPS on one 3840x2160 frame on the card: CUDA
+    """Each effect op of EFFECT_OPS, then each op of the menu path
+    (menu_op_table), on one 3840x2160 frame on the card: CUDA
     events around one call, median of 7 after warm-up (host work inside the
     call, its host-built fields' uploads among it, included)."""
     from paintfe_tpu_torch.parallel.pipeline import _OP_TABLE
+
+    import torch
 
     img = _rand(gen, UHD, dev)
     print(f"effect ops at 3840x2160, one call, median of 7 [card: {card}]:")
     for name, args in EFFECT_OPS:
         ms = _time_ms(lambda op=_OP_TABLE[name], args=args: op(img, *args), runs=7)
         print(f"  {name}{args}: {ms:.4f} ms [card: {card}]")
+    mask = torch.from_numpy(_ellipse(*UHD)).to(dev)
+    print(f"menu ops at 3840x2160 under an elliptic selection, one call, median of 7 "
+          f"[card: {card}]:")
+    for name, fn in menu_op_table(*UHD):
+        ms = _time_ms(lambda fn=fn: fn(img, mask), runs=7)
+        print(f"  {name}: {ms:.4f} ms [card: {card}]")
 
 
 def _wall_ms(fn, runs=5):
@@ -2700,6 +3159,7 @@ def main() -> int:
     from paintfe_tpu_torch.parallel.batch import shutdown_encode_pool
     from paintfe_tpu_torch.utils.cuda_build import BUILD_INFO, load_library
 
+    started = time.perf_counter()
     card = _card()
     print(card)
     print(f"torch {torch.__version__} CUDA {torch.version.cuda}, device "
@@ -2747,6 +3207,8 @@ def main() -> int:
          "launched_on": [tag for tag, c in phases.items() if c[name]],
          "max_abs_err": max(errs[name]), **times[name]}
         for name, (source, replaces) in KERNEL_SOURCES.items()]
+    print(f"smoke: {time.perf_counter() - started:.1f} s, the kernels' build included "
+          f"[card: {card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

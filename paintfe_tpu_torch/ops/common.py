@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -12,6 +13,18 @@ def masked(img: torch.Tensor, out: torch.Tensor, mask) -> torch.Tensor:
         return out
     mask = torch.as_tensor(mask, device=img.device)
     return torch.where((mask > 0)[..., None], out, img)
+
+
+def as_image(img, device="cuda") -> torch.Tensor:
+    """`img` as a tensor: a tensor stays where it is, a u8 array (numpy or
+    array-like) goes to `device` (the card unless the caller passes "cpu";
+    raises when no card is available)."""
+    if isinstance(img, torch.Tensor):
+        return img
+    from paintfe_tpu_torch.utils.device import resolve_device
+
+    host = torch.from_numpy(np.ascontiguousarray(img, np.uint8))
+    return host.to(resolve_device(device))
 
 
 def coord_grids(h: int, w: int, device="cpu"):

@@ -1,23 +1,27 @@
-"""Artistic effects: ink (Sobel) and oil painting (modal intensity bin)
-(paintfe_tpu.ops.effects.artistic counterpart; color_filter waits for
-ROADMAP A6).
+"""Artistic effects: ink (Sobel), oil painting (modal intensity bin) and
+the colour filter (paintfe_tpu.ops.effects.artistic counterpart).
 
 Behavioral contract: src/ops/effects/artistic.rs — ink_core (:31-101),
-oil_painting_core (:123-218).  Both are IEEE-basic and byte-equal to the
-JAX package: ink's Sobel sums run in f32 in the reference's expression
-order with a correctly rounded sqrt and divide; oil painting is integer
-window sums per intensity level, the modal level taken with a strict >
-(the first maximum wins, the reference's tie order).
+oil_painting_core (:123-218), color_filter_core (:218-310).  All are
+IEEE-basic and byte-equal to the JAX package: ink's Sobel sums run in f32
+in the reference's expression order with a correctly rounded sqrt and
+divide; oil painting is integer window sums per intensity level, the
+modal level taken with a strict > (the first maximum wins, the
+reference's tie order); the colour filter's blends run in f32 in the JAX
+package's order, soft light's sqrt correctly rounded (`sqrt_f32`: torch's
+CPU sqrt is 1 ulp low on some inputs, ROADMAP C1).
 """
 
 from __future__ import annotations
 
+import enum
+
 import numpy as np
 import torch
 
-from paintfe_tpu_torch.ops.common import by_frames, pad_edges, window_sums
+from paintfe_tpu_torch.ops.common import as_image, by_frames, pad_edges, window_sums
 from paintfe_tpu_torch.ops.common import masked as _masked
-from paintfe_tpu_torch.utils.quant import ieee_div, sqrt_f32
+from paintfe_tpu_torch.utils.quant import ieee_div, round_u8, sqrt_f32
 
 f32 = np.float32
 
@@ -77,3 +81,44 @@ def oil_painting(img: torch.Tensor, radius: int, levels: int, mask=None) -> torc
         return torch.cat([rgb, x[..., 3:4]], dim=-1)
 
     return _masked(img, by_frames(run, img), mask)
+
+
+class ColorFilterMode(enum.IntEnum):
+    MULTIPLY = 0
+    SCREEN = 1
+    OVERLAY = 2
+    SOFT_LIGHT = 3
+
+
+def color_filter(img, filter_color, intensity: float, mode=ColorFilterMode.MULTIPLY,
+                 mask=None, device="cuda") -> torch.Tensor:
+    """Per-channel constant-colour blend lerped by intensity
+    (artistic.rs:218-310) of u8 [..., H, W, 4] (a tensor, or numpy moved to
+    `device`); alpha kept."""
+    x = as_image(img, device)
+    mode = ColorFilterMode(mode)
+    inten = f32(intensity)
+    keep = float(f32(1.0) - inten)
+    fcs = [f32(int(c)) / f32(255.0) for c in tuple(filter_color)[:3]]
+
+    def blend(s, fv):
+        if mode == ColorFilterMode.MULTIPLY:
+            return s * float(fv)
+        if mode == ColorFilterMode.SCREEN:
+            return 1.0 - (1.0 - s) * float(f32(1.0) - fv)
+        if mode == ColorFilterMode.OVERLAY:
+            return torch.where(s < 0.5, 2.0 * s * float(fv),
+                               1.0 - 2.0 * (1.0 - s) * float(f32(1.0) - fv))
+        if fv < 0.5:
+            return s - float(f32(1.0) - f32(2.0) * fv) * s * (1.0 - s)
+        return s + float(f32(2.0) * fv - f32(1.0)) * (sqrt_f32(s) - s)
+
+    def run(t):
+        src = t.float()
+        chans = []
+        for c in range(3):
+            s = ieee_div(src[..., c], 255.0)
+            chans.append((s * keep + blend(s, fcs[c]) * float(inten)) * 255.0)
+        return round_u8(torch.stack(chans + [src[..., 3]], dim=-1))
+
+    return _masked(x, by_frames(run, x), mask)

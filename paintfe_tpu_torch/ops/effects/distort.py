@@ -1,22 +1,26 @@
-"""Distortion effects: pixelate, crystallize, and the inverse-mapped bulge
-and twist (paintfe_tpu.ops.effects.distort counterpart; dents waits for
-ROADMAP A6).
+"""Distortion effects: pixelate, crystallize, and the inverse-mapped bulge,
+twist and dents (paintfe_tpu.ops.effects.distort counterpart).
 
 Behavioral contract: src/ops/effects/distort.rs — jittered-grid Voronoi
 crystallize (:26-169), block-center pixelate (:333-373), radial bulge
-(:396-437), falloff-rotation twist (:460-500).  Bulge and twist are
-dst(x, y) = src(f(x, y)) with an edge-clamped bilinear gather through the
-K-warp kernel wrapper (ops/warp_kernel.py, mode "clamp"), which on a CPU
-tensor takes its plain version.  The bulge field is computed in f32 on the
-image's device in the JAX package's expression order.  The twist field
-takes a cos and a sin of each pixel's rotation: under the transcendental
-rule (ROADMAP C2) it is built on the host, each an f64 libm call of the
-f32 argument rounded once to f32, and cached per parameter set, so the
-port's CPU and card outputs are byte-equal and within 1 of the JAX
-package's u8.  Pixelate and crystallize are byte-equal to the JAX
-package; crystallize's Voronoi map depends only on coordinates and the
-seed, so it is built on the host, and only the per-cell sums and the
-gather of the averages run on the device.
+(:396-437), falloff-rotation twist (:460-500), turbulence-displacement
+dents (:248-310).  Bulge, twist and dents are dst(x, y) = src(f(x, y))
+with an edge-clamped bilinear gather through the K-warp kernel wrapper
+(ops/warp_kernel.py, mode "clamp"), which on a CPU tensor takes its plain
+version.  The bulge field is computed in f32 on the image's device in the
+JAX package's expression order.  The twist field takes a cos and a sin of
+each pixel's rotation: under the transcendental rule (ROADMAP C2) it is
+built on the host, each an f64 libm call of the f32 argument rounded once
+to f32, and cached per parameter set, so the port's CPU and card outputs
+are byte-equal and within 1 of the JAX package's u8.  The dents field's
+two turbulence planes depend only on coordinates and the seed: they are
+built on the host (utils/hashing, bit-identical to the JAX package) and
+cached per parameter set; its pinch and wrap run on the device with a
+correctly rounded sqrt and true divides, so dents is byte-equal to the
+JAX package.  Pixelate and crystallize are byte-equal to the JAX package;
+crystallize's Voronoi map depends only on coordinates and the seed, so it
+is built on the host, and only the per-cell sums and the gather of the
+averages run on the device.
 """
 
 from __future__ import annotations
@@ -26,9 +30,9 @@ import functools
 import numpy as np
 import torch
 
-from paintfe_tpu_torch.ops.common import by_frames, coord_grids
+from paintfe_tpu_torch.ops.common import as_image, by_frames, coord_grids
 from paintfe_tpu_torch.ops.common import masked as _masked
-from paintfe_tpu_torch.utils.hashing import hash_f32
+from paintfe_tpu_torch.utils.hashing import hash_f32, turbulence_2d
 from paintfe_tpu_torch.utils.quant import ieee_div, sqrt_f32
 
 f32 = np.float32
@@ -242,3 +246,67 @@ def twist(img: torch.Tensor, angle_deg: float, origin=(0.5, 0.5),
     warped = gather_bilinear_u8(img, torch.from_numpy(src_x).to(img.device),
                                 torch.from_numpy(src_y).to(img.device), mode="clamp")
     return _masked(img, warped, mask)
+
+
+# ---------------------------------------------------------------------------
+# Dents
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=2)  # 66 MB an entry at 3840x2160
+def dents_noise(scale: float, seed: int, octaves: int, roughness: float, h: int, w: int):
+    """The two turbulence planes of dents, each f32 [H, W] in [-1, 1]
+    (numpy, on the host): turbulence_2d at the pixel coordinates over
+    max(scale, 0.5), seeds `seed` and `seed + 9999`, octaves clipped to
+    [1, 8]."""
+    inv_scale = f32(1.0) / f32(max(scale, 0.5))
+    oct_n = int(np.clip(octaves, 1, 8))
+    xs = np.arange(w, dtype=f32)[None, :] * np.ones((h, 1), f32)
+    ys = np.arange(h, dtype=f32)[:, None] * np.ones((1, w), f32)
+    sx, sy = xs * inv_scale, ys * inv_scale
+    nx = turbulence_2d(sx, sy, seed, oct_n, roughness) * f32(2.0) - f32(1.0)
+    ny = turbulence_2d(sx, sy, (seed + 9999) & 0xFFFFFFFF, oct_n, roughness) \
+        * f32(2.0) - f32(1.0)
+    return np.ascontiguousarray(nx, f32), np.ascontiguousarray(ny, f32)
+
+
+def dents_field(scale, amount, seed, octaves, roughness, pinch, wrap, h, w,
+                device="cpu"):
+    """The dents' source coordinates (src_x, src_y), f32 [H, W] on
+    `device`: the host noise planes uploaded, the pinch and the wrap in the
+    JAX package's f32 order on the device."""
+    nx_host, ny_host = dents_noise(float(scale), int(seed), int(octaves),
+                                   float(roughness), h, w)
+    nx = torch.from_numpy(nx_host).to(device)
+    ny = torch.from_numpy(ny_host).to(device)
+    xs, ys = coord_grids(h, w, device)
+    if pinch:
+        cx = f32(w) * f32(0.5)
+        cy = f32(h) * f32(0.5)
+        dx = xs - float(cx)
+        dy = ys - float(cy)
+        dist = torch.clamp(sqrt_f32(dx * dx + dy * dy), min=1.0)
+        factor = (1.0 - ieee_div(dist, float(max(cx, cy)))) * 0.5
+        nx = nx + dx / dist * factor
+        ny = ny + dy / dist * factor
+    amt, sc = float(f32(amount)), float(f32(scale))
+    src_x = xs + nx * amt * sc
+    src_y = ys + ny * amt * sc
+    if wrap:
+        src_x = src_x - torch.floor(ieee_div(src_x, float(w))) * float(w)
+        src_y = src_y - torch.floor(ieee_div(src_y, float(h))) * float(h)
+    return src_x.contiguous(), src_y.contiguous()
+
+
+def dents(img, scale, amount, seed=42, octaves=2, roughness=0.5, pinch=False,
+          wrap=False, mask=None, device="cuda") -> torch.Tensor:
+    """Turbulence-field displacement warp (distort.rs:248-310) of u8
+    [..., H, W, 4] (a tensor, or numpy moved to `device`): one K-warp
+    launch (mode "clamp") for the whole batch on the card."""
+    from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
+
+    x = as_image(img, device)
+    h, w = x.shape[-3], x.shape[-2]
+    src_x, src_y = dents_field(scale, amount, seed, octaves, roughness, bool(pinch),
+                               bool(wrap), h, w, x.device)
+    return _masked(x, gather_bilinear_u8(x, src_x, src_y, mode="clamp"), mask)

@@ -1,6 +1,6 @@
 """Convolution and neighbourhood filters: the Gaussian, box and motion
 blurs, sharpen, glow, the median and reduce-noise (paintfe_tpu.ops.filters
-counterpart; its bokeh and zoom blurs wait for ROADMAP A6).
+counterpart), and the bokeh and zoom blurs.
 
 Behavioral contract: src/ops/filters.rs — separable Gaussian, kernel
 truncated at ceil(3*sigma), H pass u8->f32, V pass f32->u8 round-half-up,
@@ -8,9 +8,11 @@ f32 sums in reference tap order; effects/blur.rs — box (u8 between the
 passes, integer round-half-up) and motion blur (integer sums of line
 samples); effects/stylize.rs — unsharp mask and glow over the Gaussian;
 effects/noise.rs — per-channel median of the (2r+1)^2 window, edges
-replicated, and the bilateral reduce-noise.  The Gaussian runs through the
-K-blur kernel wrapper (sharpen and glow included) and the median through
-K-median's (ops/kernels.py); on a CPU tensor each takes its plain version.
+replicated, and the bilateral reduce-noise; effects/blur.rs — the bokeh
+disc average (:22-115) and the zoom blur (:322-427).  The Gaussian runs
+through the K-blur kernel wrapper (sharpen and glow included) and the
+median through K-median's (ops/kernels.py); on a CPU tensor each takes its
+plain version.
 The rest is plain torch in the JAX package's expression order, over
 [..., H, W, 4] tensors, and byte-equal to the JAX package, except
 reduce-noise: its weight is an exp of a pixel-dependent argument, which
@@ -28,9 +30,9 @@ import math
 import numpy as np
 import torch
 
-from paintfe_tpu_torch.ops.common import by_frames, pad_edges, window_sums
+from paintfe_tpu_torch.ops.common import as_image, by_frames, pad_edges, window_sums
 from paintfe_tpu_torch.ops.common import masked as _masked
-from paintfe_tpu_torch.utils.quant import ieee_div, round_u8
+from paintfe_tpu_torch.utils.quant import ieee_div, round_half_away, round_u8, sqrt_f32
 
 f32 = np.float32
 
@@ -111,11 +113,6 @@ def box_blur(img: torch.Tensor, radius: float, mask=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _round_half_away(x: np.ndarray) -> np.ndarray:
-    """Rust f32::round — half away from zero (for coordinate rounding)."""
-    return np.sign(x) * np.floor(np.abs(x) + f32(0.5))
-
-
 @functools.lru_cache(maxsize=32)
 def motion_taps(angle_deg: float, distance: float, h: int, w: int):
     """The motion blur's sample columns and rows, one [W] and one [H]
@@ -130,8 +127,8 @@ def motion_taps(angle_deg: float, distance: float, h: int, w: int):
     ys = np.arange(h, dtype=f32)
     taps = []
     for i in range(-steps, steps + 1):
-        sx = np.clip(_round_half_away(xs + f32(i) * dx).astype(np.int32), 0, w - 1)
-        sy = np.clip(_round_half_away(ys + f32(i) * dy).astype(np.int32), 0, h - 1)
+        sx = np.clip(round_half_away(xs + f32(i) * dx).astype(np.int32), 0, w - 1)
+        sy = np.clip(round_half_away(ys + f32(i) * dy).astype(np.int32), 0, h - 1)
         taps.append((sx.astype(np.int64), sy.astype(np.int64)))
     return taps, inv
 
@@ -156,6 +153,111 @@ def motion_blur(img: torch.Tensor, angle_deg: float, distance: float,
         return round_u8(acc.float() * float(inv))
 
     return _masked(img, by_frames(run, img), mask)
+
+
+# ---------------------------------------------------------------------------
+# Bokeh (equal-weight disc)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def bokeh_spans(radius: float):
+    """The disc of bokeh_blur as (r, [(dy, half-span)], f32 reciprocal of
+    the tap count), in the JAX package's host f32 math."""
+    r = int(math.ceil(radius))
+    r2 = f32(radius) * f32(radius)
+    spans = []
+    count = 0
+    for dyy in range(-r, r + 1):
+        remaining = r2 - f32(dyy * dyy)
+        if remaining >= 0.0:
+            span = int(np.floor(np.sqrt(remaining)))
+            spans.append((dyy, span))
+            count += span * 2 + 1
+    return r, spans, f32(1.0) / f32(count)
+
+
+def bokeh_blur(img, radius: float, mask=None, device="cuda") -> torch.Tensor:
+    """Exact equal-weight disc average (effects/blur.rs:22-115) of u8
+    [..., H, W, 4] (a tensor, or numpy moved to `device`).  Each row of the
+    disc is a difference of two x-prefix sums of the edge-padded image
+    (int64: exact, so the sums equal the JAX package's u32 tap sums), then
+    one f32 multiply by the reciprocal of the tap count, rounded half up."""
+    x = as_image(img, device)
+    if radius < 0.5:
+        return x
+    r, spans, inv = bokeh_spans(float(radius))
+    inv = float(inv)
+
+    def run(t):
+        h, w = t.shape[-3], t.shape[-2]
+        padded = pad_edges(pad_edges(t.long(), r, -3), r, -2)
+        c = torch.cumsum(padded, dim=-2)
+        c = torch.cat([torch.zeros_like(c[..., :1, :]), c], dim=-2)
+        acc = torch.zeros(t.shape, dtype=torch.int64, device=t.device)
+        for dyy, span in spans:
+            rows = c[..., r + dyy:r + dyy + h, :, :]
+            acc += rows[..., r + span + 1:r + span + 1 + w, :] - rows[..., r - span:r - span + w, :]
+        return round_u8(acc.float() * inv)
+
+    return _masked(x, by_frames(run, x), mask)
+
+
+# ---------------------------------------------------------------------------
+# Zoom (radial)
+# ---------------------------------------------------------------------------
+
+
+def zoom_blur(img, center_x=0.5, center_y=0.5, strength=0.3, samples=8,
+              tint_color=(0.0, 0.0, 0.0, 0.0), tint_strength=0.0, mask=None,
+              device="cuda") -> torch.Tensor:
+    """Radial zoom streaks toward a normalized center (effects/blur.rs:322-427)
+    of u8 [..., H, W, 4] (a tensor, or numpy moved to `device`).  The zoom
+    map is separable: each sample is a take of rows then of columns at
+    indices rounded half away from zero; integer sums, one f32 multiply by
+    the reciprocal of the sample count, then the tint (its distance a
+    correctly rounded sqrt, its divide a true divide), rounded half up."""
+    x = as_image(img, device)
+    if strength < 0.001:
+        return x
+    h, w = x.shape[-3], x.shape[-2]
+    dev = x.device
+    cx = f32(center_x) * f32(w)
+    cy = f32(center_y) * f32(h)
+    s = f32(np.clip(strength, 0.0, 0.99))
+    n = max(int(samples), 2)
+    inv_n = float(f32(1.0) / f32(n))
+    corners = [(cx, cy), (f32(w) - cx, cy), (cx, f32(h) - cy), (f32(w) - cx, f32(h) - cy)]
+    max_dist = max(max(float(np.sqrt(a * a + b * b)) for a, b in corners), 1.0)
+    xs1 = torch.arange(w, dtype=torch.float32, device=dev)
+    ys1 = torch.arange(h, dtype=torch.float32, device=dev)
+    taps = []
+    for i in range(n):
+        t = float(f32(1.0) - s * (f32(i) / f32(n - 1)))
+        sxv = torch.clamp(round_half_away(float(cx) + (xs1 - float(cx)) * t).int(), 0, w - 1)
+        syv = torch.clamp(round_half_away(float(cy) + (ys1 - float(cy)) * t).int(), 0, h - 1)
+        taps.append((syv.long(), sxv.long()))
+    tint = None
+    if tint_strength > 0.001:
+        dx = xs1[None, :] - float(cx)
+        dy = ys1[:, None] - float(cy)
+        dist = sqrt_f32(dx * dx + dy * dy)
+        tt = torch.clamp(1.0 - ieee_div(dist, float(f32(max_dist))), min=0.0) \
+            * float(f32(tint_strength))
+        tint_v = torch.from_numpy(np.asarray(tint_color, f32) * f32(255.0)).to(dev)
+        tint = (tint_v, tt[..., None])
+
+    def run(t):
+        src = t.int()
+        acc = torch.zeros_like(src)
+        for syv, sxv in taps:
+            acc += src.index_select(-3, syv).index_select(-2, sxv)
+        out = acc.float() * inv_n
+        if tint is not None:
+            out = out + (tint[0] - out) * tint[1]
+        return round_u8(out)
+
+    return _masked(x, by_frames(run, x), mask)
 
 
 # ---------------------------------------------------------------------------

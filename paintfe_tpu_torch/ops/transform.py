@@ -9,13 +9,20 @@ and resize_canvas are host numpy in the JAX package and are copied here as
 host numpy, so they come out identical to it.  The affine transform takes
 its coefficients on the host (numpy f32, as the JAX package) and maps and
 gathers on a torch device: K-warp for bilinear, a plain gather for
-nearest.
+nearest.  The Liquify brushes touch a brush-sized window of a host field:
+they are host numpy with the JAX package's numpy calls (its f32 `np.exp`
+included), so both packages give the same bytes on one host.  The mesh
+warp evaluates its Catmull-Rom surfaces on the device in the JAX package's
+f32 order, one torch op a product or sum (nothing contracts into an FMA),
+and gathers through `warp_displacement` (K-warp, mode "zero").
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from paintfe_tpu_torch.utils.quant import ieee_div, round_half_away
 
 f32 = np.float32
 
@@ -51,17 +58,20 @@ def rotate_90ccw(img):
     return np.ascontiguousarray(np.rot90(np.asarray(img), k=1, axes=(-3, -2)))
 
 
-def warp_displacement(src, field) -> torch.Tensor:
+def warp_displacement(src, field, device="cuda") -> torch.Tensor:
     """Full-image displacement warp (transform.rs:1288-1345): output(x, y)
     = bilinear src(x - dx, y - dy), zero-padded corners, transparent
-    outside the source.  src: u8 [Hs, Ws, 4] or [B, Hs, Ws, 4] (torch or
-    numpy); field: (dx, dy) f32 [H, W, 2] (torch or numpy).  The gather is
-    K-warp in mode "zero" on the card, its plain version on the CPU."""
-    from paintfe_tpu_torch.ops.common import coord_grids
+    outside the source.  src: u8 [Hs, Ws, 4] or [B, Hs, Ws, 4] (a tensor,
+    run where it is, or numpy, moved to `device`, the card unless the
+    caller passes "cpu"); field: (dx, dy) f32 [H, W, 2] (torch or numpy) or
+    a DisplacementField.  The gather is K-warp in mode "zero" on the card,
+    its plain version on the CPU."""
+    from paintfe_tpu_torch.ops.common import as_image, coord_grids
     from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
 
-    if not isinstance(src, torch.Tensor):
-        src = torch.from_numpy(np.ascontiguousarray(src, np.uint8))
+    src = as_image(src, device)
+    if isinstance(field, DisplacementField):
+        field = field.data
     if not isinstance(field, torch.Tensor):
         # round to f32 first: sx/sy arithmetic never runs in f64
         field = torch.from_numpy(np.asarray(field, np.float32))
@@ -290,8 +300,8 @@ def _affine_fn(canvas_w, canvas_h, src_h, src_w, nearest):
         src_x, src_y, _ = _affine_map(params, canvas_w, canvas_h, src.device)
         if not nearest:
             return gather_bilinear_u8(src, src_x, src_y, "zero")
-        nx = (torch.sign(src_x) * torch.floor(torch.abs(src_x) + 0.5)).to(torch.int32)
-        ny = (torch.sign(src_y) * torch.floor(torch.abs(src_y) + 0.5)).to(torch.int32)
+        nx = round_half_away(src_x).to(torch.int32)
+        ny = round_half_away(src_y).to(torch.int32)
         inb = (nx >= 0) & (ny >= 0) & (nx < src_w) & (ny < src_h)
         out = src[..., torch.clamp(ny, 0, src_h - 1).long(),
                   torch.clamp(nx, 0, src_w - 1).long(), :]
@@ -332,3 +342,182 @@ def rotate_arbitrary(img, degrees: float, interpolation: str = "bilinear", devic
         return img
     return apply_affine(img, rotation_z=degrees, interpolation=interpolation,
                         device=device)
+
+
+# ---------------------------------------------------------------------------
+# Displacement field (Liquify)
+# ---------------------------------------------------------------------------
+
+
+class DisplacementField:
+    """(dx, dy) f32 field on the host; output(x,y) = src(x-dx, y-dy).
+
+    Brush ops mirror transform.rs:1051-1200: host numpy over a
+    brush-radius window, the JAX package's calls.  Each returns the
+    window it touched, (x0, y0, x1, y1)."""
+
+    def __init__(self, width: int, height: int):
+        self.width = width
+        self.height = height
+        self.data = np.zeros((height, width, 2), f32)
+
+    def _window(self, center_x, center_y, radius):
+        r = f32(max(radius, 1.0))
+        x0 = max(int(np.floor(f32(center_x) - r)), 0)
+        y0 = max(int(np.floor(f32(center_y) - r)), 0)
+        # the ends clamp at the starts: a brush centre off the canvas
+        # touches nothing (transform.rs:1063-1081)
+        x1 = min(max(int(np.ceil(f32(center_x) + r)), x0), self.width)
+        y1 = min(max(int(np.ceil(f32(center_y) + r)), y0), self.height)
+        xs = np.arange(x0, x1, dtype=f32) - f32(center_x)
+        ys = np.arange(y0, y1, dtype=f32) - f32(center_y)
+        dx = xs[None, :] * np.ones((len(ys), 1), f32)
+        dy = ys[:, None] * np.ones((1, len(xs)), f32)
+        dist_sq = dx * dx + dy * dy
+        inside = dist_sq <= r * r
+        return (x0, y0, x1, y1), dx, dy, dist_sq, inside, r
+
+    def apply_push(self, center_x, center_y, delta_x, delta_y, radius, strength):
+        (x0, y0, x1, y1), dx, dy, dist_sq, inside, r = self._window(center_x, center_y, radius)
+        sigma = r / f32(3.0)
+        s2 = f32(2.0) * sigma * sigma
+        weight = np.exp(-dist_sq / s2, dtype=f32) * f32(strength)
+        weight = np.where(inside, weight, f32(0.0))
+        self.data[y0:y1, x0:x1, 0] += f32(delta_x) * weight
+        self.data[y0:y1, x0:x1, 1] += f32(delta_y) * weight
+        return (x0, y0, x1, y1)
+
+    def apply_expand(self, center_x, center_y, radius, strength):
+        (x0, y0, x1, y1), dx, dy, dist_sq, inside, r = self._window(center_x, center_y, radius)
+        dist = np.maximum(np.sqrt(dist_sq, dtype=f32), f32(0.001))
+        t = dist / r
+        weight = (f32(1.0) - t) * (f32(1.0) - t) * f32(strength) * f32(3.0)
+        weight = np.where(inside, weight, f32(0.0))
+        self.data[y0:y1, x0:x1, 0] += dx / dist * weight
+        self.data[y0:y1, x0:x1, 1] += dy / dist * weight
+        return (x0, y0, x1, y1)
+
+    def apply_contract(self, center_x, center_y, radius, strength):
+        (x0, y0, x1, y1), dx, dy, dist_sq, inside, r = self._window(center_x, center_y, radius)
+        sigma = r / f32(3.0)
+        s2 = f32(2.0) * sigma * sigma
+        dist = np.maximum(np.sqrt(dist_sq, dtype=f32), f32(0.001))
+        weight = np.exp(-dist_sq / s2, dtype=f32) * f32(strength)
+        weight = np.where(inside, weight, f32(0.0))
+        self.data[y0:y1, x0:x1, 0] += -dx / dist * weight * f32(2.0)
+        self.data[y0:y1, x0:x1, 1] += -dy / dist * weight * f32(2.0)
+        return (x0, y0, x1, y1)
+
+    def apply_twirl(self, center_x, center_y, radius, strength, clockwise=True):
+        (x0, y0, x1, y1), dx, dy, dist_sq, inside, r = self._window(center_x, center_y, radius)
+        sigma = r / f32(3.0)
+        s2 = f32(2.0) * sigma * sigma
+        d = f32(1.0) if clockwise else f32(-1.0)
+        weight = np.exp(-dist_sq / s2, dtype=f32) * f32(strength) * d
+        weight = np.where(inside, weight, f32(0.0))
+        self.data[y0:y1, x0:x1, 0] += -dy * weight * f32(0.1)
+        self.data[y0:y1, x0:x1, 1] += dx * weight * f32(0.1)
+        return (x0, y0, x1, y1)
+
+
+# ---------------------------------------------------------------------------
+# Catmull-Rom mesh warp
+# ---------------------------------------------------------------------------
+
+
+def catmull_rom_weights(t: torch.Tensor):
+    """Cardinal spline weights, tau=0.5 (transform.rs:1557-1567), of an f32
+    tensor."""
+    t2 = t * t
+    t3 = t2 * t
+    return (
+        -0.5 * t3 + t2 - 0.5 * t,
+        1.5 * t3 - 2.5 * t2 + 1.0,
+        -1.5 * t3 + 2.0 * t2 + 0.5 * t,
+        0.5 * t3 - 0.5 * t2,
+    )
+
+
+def catmull_rom_surface(points, cols, rows, u_global, v_global):
+    """Bicubic CR surface over a (rows+1)x(cols+1) control grid; u in
+    [0, cols], v in [0, rows] (transform.rs:1586-1646).  `points` is
+    [(rows+1)*(cols+1), 2] (numpy or a tensor, moved to u_global's device);
+    u_global and v_global are f32 tensors of one shape.  Returns (x, y)."""
+    dev = u_global.device
+    points = torch.as_tensor(np.asarray(points, f32) if not isinstance(points, torch.Tensor)
+                             else points, device=dev).float()
+    pts_per_row = cols + 1
+    num_rows = rows + 1
+    col_f = torch.clamp(u_global, 0.0, float(f32(cols) - f32(0.0001)))
+    row_f = torch.clamp(v_global, 0.0, float(f32(rows) - f32(0.0001)))
+    ci = torch.clamp(col_f.int(), max=cols - 1)
+    ri = torch.clamp(row_f.int(), max=rows - 1)
+    u = col_f - ci.float()
+    v = row_f - ri.float()
+    wu = catmull_rom_weights(u)
+    wv = catmull_rom_weights(v)
+    cu = [torch.clamp(ci - 1, min=0), ci, torch.clamp(ci + 1, max=pts_per_row - 1),
+          torch.clamp(ci + 2, max=pts_per_row - 1)]
+    rv = [torch.clamp(ri - 1, min=0), ri, torch.clamp(ri + 1, max=num_rows - 1),
+          torch.clamp(ri + 2, max=num_rows - 1)]
+    px, py = points[:, 0], points[:, 1]
+    out_x = out_y = 0.0
+    for j in range(4):
+        base = rv[j] * pts_per_row
+        row_x = row_y = 0.0
+        for k in range(4):
+            idx = (base + cu[k]).long()
+            row_x = row_x + wu[k] * px[idx]
+            row_y = row_y + wu[k] * py[idx]
+        out_x = out_x + wv[j] * row_x
+        out_y = out_y + wv[j] * row_y
+    return out_x, out_y
+
+
+def generate_displacement_from_mesh(original_points, deformed_points, cols, rows,
+                                    out_w, out_h, fast=False, device="cuda") -> torch.Tensor:
+    """Displacement = deformed CR surface - original CR surface
+    (transform.rs:1670-1741; the fast path assumes an identity original
+    grid), f32 [out_h, out_w, 2] on `device`."""
+    from paintfe_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cols, rows, out_w, out_h = int(cols), int(rows), int(out_w), int(out_h)
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :] + 0.5
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None] + 0.5
+    ones_h = torch.ones((out_h, 1), dtype=torch.float32, device=dev)
+    ones_w = torch.ones((1, out_w), dtype=torch.float32, device=dev)
+    u = ieee_div(xs, float(out_w)) * float(cols) * ones_h
+    v = ieee_div(ys, float(out_h)) * float(rows) * ones_w
+    dx_def, dy_def = catmull_rom_surface(deformed_points, cols, rows, u, v)
+    if fast:
+        ox, oy = xs * ones_h, ys * ones_w
+    else:
+        ox, oy = catmull_rom_surface(original_points, cols, rows, u, v)
+    return torch.stack([dx_def - ox, dy_def - oy], dim=-1)
+
+
+def warp_mesh_catmull_rom(src, original_points, deformed_points, cols, rows,
+                          out_w=None, out_h=None, device="cuda") -> torch.Tensor:
+    """Mesh displacement + displacement warp (transform.rs:1743-1761) of u8
+    [H, W, 4] (a tensor, or numpy moved to `device`)."""
+    from paintfe_tpu_torch.ops.common import as_image
+
+    x = as_image(src, device)
+    out_h = x.shape[0] if out_h is None else out_h
+    out_w = x.shape[1] if out_w is None else out_w
+    disp = generate_displacement_from_mesh(original_points, deformed_points, cols, rows,
+                                           out_w, out_h, device=x.device)
+    return warp_displacement(x, disp)
+
+
+def uniform_grid(cols: int, rows: int, w: float, h: float) -> np.ndarray:
+    """(rows+1)x(cols+1) control lattice spanning [0,w]x[0,h], row-major."""
+    pts = np.zeros(((rows + 1) * (cols + 1), 2), f32)
+    for r in range(rows + 1):
+        for c in range(cols + 1):
+            pts[r * (cols + 1) + c] = [
+                f32(c) / f32(cols) * f32(w),
+                f32(r) / f32(rows) * f32(h),
+            ]
+    return pts

@@ -9,6 +9,7 @@ needs.  One PyTorch trap remains and is handled by ``ieee_div``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -32,6 +33,13 @@ def round_u8(x: torch.Tensor) -> torch.Tensor:
     """Round half up, clamp to [0, 255], cast to u8 (Rust
     ``v.round().clamp(0, 255) as u8`` for finite v)."""
     return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0).to(torch.uint8)
+
+
+def round_half_away(x):
+    """Rust ``f32::round`` (half away from zero) of an f32 tensor or numpy
+    array, in f32."""
+    xp = torch if isinstance(x, torch.Tensor) else np
+    return xp.sign(x) * xp.floor(xp.abs(x) + 0.5)
 
 
 def trunc_u8(x: torch.Tensor) -> torch.Tensor:

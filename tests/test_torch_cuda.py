@@ -837,3 +837,94 @@ def test_hsl_round_trip_on_the_card_equals_the_cpu(dev):
         assert torch.equal(a.cpu(), b)
     for a, b in zip(colorspace.hsl_to_rgb(*card), colorspace.hsl_to_rgb(*host)):
         assert torch.equal(a.cpu(), b)
+
+
+def _menu_ops(h, w):
+    import chip_smoke
+
+    return chip_smoke.menu_op_table(h, w)
+
+
+_MENU_NAMES = [name for name, _ in _menu_ops(8, 8)]
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (61, 90)])
+@pytest.mark.parametrize("k", range(len(_MENU_NAMES)), ids=_MENU_NAMES)
+def test_menu_op_on_the_card_equals_the_cpu(dev, k, shape):
+    """Each op of the menu path (the adjustments, the menu effects, the
+    Liquify and mesh warps, the gradients) at odd widths under an elliptic
+    selection: the card's bytes equal the CPU's."""
+    import chip_smoke
+
+    h, w = shape
+    name, fn = _menu_ops(h, w)[k]
+    host = _img(shape, 30 + k, "cpu")
+    mask = torch.from_numpy(chip_smoke._ellipse(h, w))
+    got = fn(host.to(dev), mask.to(dev))
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), fn(host, mask)), name
+
+
+def test_band_remainder_on_the_card_equals_the_cpu(dev):
+    """hue_saturation_per_band's floor-mod: torch.remainder on the card
+    equals the CPU's (and so jnp.remainder, tests/test_torch_adjustments.py)
+    bitwise, divisors 1 and 360."""
+    x = torch.from_numpy(np.random.default_rng(27).uniform(-1000, 1000, 1 << 20)
+                         .astype(np.float32))
+    for d in (1.0, 360.0):
+        assert torch.equal(torch.remainder(x.to(dev), d).cpu(), torch.remainder(x, d))
+
+
+def _launched(fn):
+    before = {f: f.launches for f in (kernels.gaussian_blur_fused, warp_kernel.gather_bilinear_u8,
+                                      kernels.composite_stack_kernel)}
+    fn()
+    torch.cuda.synchronize()
+    return {f.__name__: f.launches - n for f, n in before.items()}
+
+
+def test_menu_launch_counts(dev):
+    """dents, the Liquify warp and the mesh warp launch K-warp once each,
+    the drop shadow K-blur once; none launches another kernel."""
+    from paintfe_tpu_torch.ops.effects import render
+
+    img = _img((61, 90), 40, dev)
+    field = tfm.DisplacementField(90, 61)
+    field.apply_twirl(40.0, 30.0, 20.0, 1.0)
+    grid = tfm.uniform_grid(4, 3, 90, 61)
+    warp_once = {"gaussian_blur_fused": 0, "gather_bilinear_u8": 1,
+                 "composite_stack_kernel": 0}
+    assert _launched(lambda: distort.dents(img, 8.0, 0.6, pinch=True)) == warp_once
+    assert _launched(lambda: tfm.warp_displacement(img, field)) == warp_once
+    assert _launched(lambda: tfm.warp_mesh_catmull_rom(img, grid, grid + 2.5, 4, 3)) \
+        == warp_once
+    assert _launched(lambda: render.drop_shadow(img, 4, 3, 3.0, True, (0, 0, 0, 255), 0.8)) \
+        == {"gaussian_blur_fused": 1, "gather_bilinear_u8": 0, "composite_stack_kernel": 0}
+
+
+def test_menu_path_on_the_card_equals_the_cpu(dev, tmp_path):
+    """chip_smoke's menu path at 128x96: every step on the card against the
+    same step on the CPU, then undo to the start and redo to the end."""
+    import chip_smoke
+    from paintfe_tpu_torch.core.history import HistoryManager
+    from paintfe_tpu_torch.core.project import Project
+    from paintfe_tpu_torch.io.pfe import save_pfe
+
+    src = tmp_path / "doc.pfe"
+    save_pfe(chip_smoke.editing_document(np.random.default_rng(11), 96, 128), str(src))
+    card, host = Project.open(src, device=dev), Project.open(src, device="cpu")
+    card.history = HistoryManager(max_entries=100, memory_limit_bytes=1 << 30)
+    states = {}, {}
+    for (name, step), (_, cpu_step) in zip(
+            chip_smoke.menu_steps(chip_smoke.menu_modules(), {"device": dev}),
+            chip_smoke.menu_steps(chip_smoke.menu_modules(), {"device": "cpu"})):
+        step(card, states[0])
+        cpu_step(host, states[1])
+        assert chip_smoke.document_differences(card.canvas, host.canvas) == [], name
+    assert np.array_equal(states[0]["histogram"], states[1]["histogram"])
+    while card.history.undo(card.canvas):
+        pass
+    assert chip_smoke.document_differences(card.canvas, Project.open(src, "cpu").canvas) == []
+    while card.history.redo(card.canvas):
+        pass
+    assert chip_smoke.document_differences(card.canvas, host.canvas) == []
