@@ -35,7 +35,7 @@ It builds the port's CUDA kernels from csrc/, then:
      blurring at different sigmas around a twist, 20 rounds at 1920x1080,
      each result held against the plain versions (K-blur's constant taps
      are shared by the streams);
-  3. drives seven main paths and one entry call, each with every kernel
+  3. drives eight main paths and one entry call, each with every kernel
      launch count set to 0 just before it and read just after:
      - the headline path: the serial CLI (one 3840x2160 PNG, --device
        cuda) and the --shard CLI (two 3840x2160 and two 1920x1080 PNGs,
@@ -60,13 +60,13 @@ It builds the port's CUDA kernels from csrc/, then:
        through resize_image and resize_canvas (replayed on the other
        layers) and the flatten on K-composite;
      - the inputs path (written from a seed): two 16-bit 3840x2160 PNGs
-       whose rows cycle PNG filters 0-4, a 16-bit 3840x2160 TIFF (deflate)
-       and a 512x512 one (LZW), a six-layer 3840x2160 .pdn and a 3840x2160
+       whose rows cycle PNG filters 0-4, two 16-bit 3840x2160 TIFFs (deflate,
+       LZW), a six-layer 3840x2160 .pdn and a 3840x2160
        .pfe with a text layer (outline, shadow of blur radius 6) through
        the headline script, serially (-f png, and -f tiff on the PNGs) and
        under --shard, each file equal to the same run's with --device cpu;
        --animate to APNG over four 4K PNGs and the .pdn and to GIF at
-       256x256, serially and under --shard (equal files); and --trace-dir,
+       1920x1080, serially and under --shard (equal files); and --trace-dir,
        whose trace must name K-blur's and K-composite's kernels; then each
        stage of the path timed alone (16-bit PNG load: zlib, defilter;
        .pdn load: NRBF, gzip; flatten; text rasterise; encodes);
@@ -102,6 +102,22 @@ It builds the port's CUDA kernels from csrc/, then:
        launches and one K-composite launch a raster run of the flatten
        and one for the .png save; the host turbulence fields' build time,
        each step's wall time and the card's busy time;
+     - the RAW path (written from a seed, 6000x4000, a 24 MP sensor): four
+       DNGs (16-bit strips with per-site black levels, AsShotNeutral,
+       ColorMatrix1 and an ActiveArea; deflate tiles with predictor 2;
+       lossless-JPEG tiles; LZW strips), a CR2 (lossless JPEG in Canon
+       slices, SensorInfo, ColorData), a 14-bit packed NEF, an ARW and an
+       RW2: each file's load timed by sub-stage (the native decode, upload,
+       the develop stage on the card, download, the host's matrix, sRGB
+       encode and u8 step) with the card's busy share, its develop stage
+       held against the CPU's; the native LZW decode against the pure one
+       on 1 MiB; the headline script through the serial CLI (-f jpeg on
+       half the files, -f tiff on the other half), the spatial script
+       under --shard (the NEF and a 1920x1080 DNG: two shape buckets) and
+       --animate to GIF over four 1920x1080 RAW frames, each file equal to
+       the same run's with --device cpu; exactly one K-blur an image
+       serially and one K-blur, K-median and K-warp a shape bucket under
+       --shard;
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -1008,7 +1024,7 @@ def _check_launched(tag, counts, names):
 
 def drive_main_paths(dev, gen, tmp, card):
     """The main paths (headline, spatial, layered, effects, inputs,
-    document, menu) and K-pass's entry call, each with launch counts from 0.
+    document, menu, raw) and K-pass's entry call, each with launch counts from 0.
     Returns each phase's launch counts, by phase."""
     import torch
 
@@ -1065,10 +1081,16 @@ def drive_main_paths(dev, gen, tmp, card):
     _check_launched("menu", menu, ("gather_bilinear_u8", "gaussian_blur_fused",
                                    "composite_stack_kernel"))
 
+    _reset_counts()
+    drive_raw_path(dev, tmp, card)
+    torch.cuda.synchronize()
+    raw = _counts()
+    _check_launched("raw", raw, ("gaussian_blur_fused", "median_kernel", "gather_bilinear_u8"))
+
     entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
     return {"headline": headline, "spatial": spatial, "layered": layered,
             "effects": effects, "inputs": inputs, "document": document, "menu": menu,
-            "gaussian_blur_pallas entry call": entry}
+            "raw": raw, "gaussian_blur_pallas entry call": entry}
 
 
 def drive_blur_pass_entry(dev, png):
@@ -2174,11 +2196,11 @@ def _ramp(rng, h, w, ch, scale, k):
 
 def _input_files(root, seed=41):
     """The inputs path's files, written from `seed`: two 16-bit RGBA 4K PNGs
-    whose rows cycle PNG filters 0-4, a 16-bit 4K TIFF with deflate, a
-    16-bit 512x512 TIFF with LZW (the pure-Python LZW decode is seconds a
-    megabyte), a six-layer 4K .pdn and a 4K .pfe with a raster layer and a
-    text layer (outline, and a shadow of blur radius TEXT_SHADOW_BLUR); and
-    for --animate four 8-bit 4K PNGs and three 256x256 ones."""
+    whose rows cycle PNG filters 0-4, a 16-bit 4K TIFF with deflate and one
+    with LZW (decoded in C++), a six-layer 4K .pdn and a 4K .pfe with a
+    raster layer and a text layer (outline, and a shadow of blur radius
+    TEXT_SHADOW_BLUR); and for --animate four 8-bit 4K PNGs and three
+    1920x1080 ones (GIF palettes trained in C++)."""
     import numpy as np
     from PIL import Image
 
@@ -2199,8 +2221,8 @@ def _input_files(root, seed=41):
         (root / "in" / f"p{k}.png").write_bytes(png16_bytes(px))
     write_tiff16(root / "in" / "t0.tif", w, h, _ramp(rng, h, w, 4, 65535, 2).astype(np.uint16),
                  "deflate")
-    write_tiff16(root / "in" / "t1.tif", 512, 512,
-                 _ramp(rng, 512, 512, 4, 65535, 3).astype(np.uint16), "lzw")
+    write_tiff16(root / "in" / "t1.tif", w, h, _ramp(rng, h, w, 4, 65535, 3).astype(np.uint16),
+                 "lzw")
     layers = []
     for k, blend in enumerate(PDN_BLENDS):
         px = _ramp(rng, h, w, 4, 255, 4 + k).astype(np.uint8)
@@ -2225,10 +2247,10 @@ def _input_files(root, seed=41):
         Image.fromarray(_ramp(rng, h, w, 4, 255, 20 + k).astype(np.uint8), "RGBA").save(
             root / "anim" / f"a{k}.png", compress_level=1)
     for k in range(3):
-        Image.fromarray(_ramp(rng, 256, 256, 4, 255, 30 + k).astype(np.uint8), "RGBA").save(
-            root / "gif" / f"g{k}.png")
+        Image.fromarray(_ramp(rng, *FHD, 4, 255, 30 + k).astype(np.uint8), "RGBA").save(
+            root / "gif" / f"g{k}.png", compress_level=1)
     print(f"  inputs: wrote 2 16-bit PNGs, 2 16-bit TIFFs, a .pdn, a text .pfe "
-          f"(3840x2160 but t1.tif 512x512) and the --animate frames "
+          f"(3840x2160) and the --animate frames "
           f"({time.perf_counter() - t0:.3f} s)")
 
 
@@ -2244,12 +2266,12 @@ def _same_files(tag, got_dir, want_dir):
     return names
 
 
-def _background_cli(runs):
+def _background_cli(runs, workers=2):
     """Run each argv of `runs` ((tag, argv) pairs) through the CLI in a
-    process of its own, two processes at a time, on threads; returns one
-    future of (exit code, seconds) a run, in order.  The processes take 3
-    CPU threads each (the card's runs go on beside them); a future is done
-    when its process has ended."""
+    process of its own, `workers` processes at a time, on threads; returns
+    one future of (exit code, seconds) a run, in order.  The processes take
+    3 CPU threads each (the card's runs go on beside them); a future is
+    done when its process has ended."""
     import concurrent.futures
     import os
 
@@ -2262,10 +2284,10 @@ def _background_cli(runs):
         proc = subprocess.run([sys.executable, "-m", "paintfe_tpu_torch.cli", *argv],
                               cwd=here, env=env, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
-            print(f"  inputs {tag} --device cpu: rc {proc.returncode}\n{proc.stderr[-2000:]}")
+            print(f"  {tag} --device cpu: rc {proc.returncode}\n{proc.stderr[-2000:]}")
         return proc.returncode, time.perf_counter() - t0
 
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=workers)
     futures = [pool.submit(go, tag, argv) for tag, argv in runs]
     pool.shutdown(wait=False)
     return futures
@@ -2285,7 +2307,7 @@ def drive_inputs_path(dev, tmp):
     (rows of every PNG filter), 16-bit TIFFs, a six-layer .pdn and a .pfe
     with a text layer, through the serial CLI (-f png, and -f tiff on the
     PNGs) and --shard (both); --animate to APNG over four 4K PNGs and the
-    .pdn, serially and under --shard, and to GIF at 256x256; one serial run
+    .pdn, serially and under --shard, and to GIF at 1920x1080; one serial run
     under --trace-dir.  Every file of a CLI run must equal the same run's
     with --device cpu, byte for byte; K-blur and K-composite launch exactly
     as often as the path needs.  The files stay under tmp / "inputs"."""
@@ -2302,18 +2324,18 @@ def drive_inputs_path(dev, tmp):
     # the card).  Serially: one K-blur a script run and one for the text
     # shadow; one K-composite a flatten (.pdn, text document: one raster run
     # each); the deep inputs export their exact 16-bit payload, no flatten.
-    # --shard: one K-blur a shape bucket (p0, p1, t0 at 4K; t1 at 512), the
-    # documents on the serial canvas path.
+    # --shard: one K-blur for the one shape bucket (p0, p1, t0, t1 at 4K),
+    # the documents on the serial canvas path.
     runs = {
         "serial png": (everything, ["-f", "png", "--profile"], "png", (7, 2)),
         "serial tiff": (deep_pngs, ["-f", "tiff"], "tiff", (2, 0)),
-        "shard png": (everything, ["-f", "png", "--shard"], "shard_png", (5, 2)),
+        "shard png": (everything, ["-f", "png", "--shard"], "shard_png", (4, 2)),
         "shard tiff": (deep_pngs, ["-f", "tiff", "--shard"], "shard_tiff", (1, 0)),
     }
     # the same runs with --device cpu, in processes of their own beside the
     # card's runs here; their files are compared at the end of the phase
-    cpu = _background_cli([(tag, ["-i", *inputs, *script, *extra, "--output-dir",
-                                  str(root / f"cpu_{out}"), "--device", "cpu"])
+    cpu = _background_cli([(f"inputs {tag}", ["-i", *inputs, *script, *extra, "--output-dir",
+                                             str(root / f"cpu_{out}"), "--device", "cpu"])
                            for tag, (inputs, extra, out, _) in runs.items()])
     try:
         for tag, (inputs, extra, out, (n_blur, n_comp)) in runs.items():
@@ -2350,7 +2372,7 @@ def _drive_animate_and_trace(root, script):
     """--animate to APNG over four 4K PNGs and the .pdn, serially (one
     K-blur a frame, one K-composite for the .pdn) and under --shard (one
     K-blur for the 4K bucket, one for the .pdn), equal files; GIF at
-    256x256 both ways; then one serial run of the text document under
+    1920x1080 both ways; then one serial run of the text document under
     --trace-dir, whose trace must name K-blur's and K-composite's
     kernels."""
     from paintfe_tpu_torch import cli
@@ -2408,7 +2430,8 @@ def _drive_animate_and_trace(root, script):
 def time_input_stages(dev, root, card):
     """The inputs path's stages on one input each, timed alone: the 16-bit
     PNG load (zlib, then the defilter in C++, and the pure-Python defilter
-    on a tenth of the rows), the .pdn load (NRBF graph, gzip payloads) and
+    on a tenth of the rows), the 16-bit TIFF loads (deflate, LZW), the .pdn
+    load (NRBF graph, gzip payloads) and
     its flatten on the card, the text rasterise (glyphs, outline, shadow on
     the card), and the 16-bit PNG and TIFF encodes."""
     import struct
@@ -2446,6 +2469,7 @@ def time_input_stages(dev, root, card):
                                                               stride, 8))
     _, png_load_ms = wall(lambda: deep_export.load_deep_image(ins / "p0.png"))
     _, tiff_load_ms = wall(lambda: deep_export.load_deep_image(ins / "t0.tif"))
+    _, lzw_load_ms = wall(lambda: deep_export.load_deep_image(ins / "t1.tif"))
     data = (ins / "d0.pdn").read_bytes()
     hlen = data[4] | data[5] << 8 | data[6] << 16
     reader, nrbf_ms = wall(lambda: NrbfReader(data, 7 + hlen + 2).parse())
@@ -2471,12 +2495,564 @@ def time_input_stages(dev, root, card):
     print(f"  16-bit PNG load {png_load_ms:.1f} ms: zlib {zlib_ms:.1f} ms, defilter in C++ "
           f"{native_ms:.1f} ms, pure-Python defilter {plain_ms:.1f} ms for {rows} of {h} rows "
           f"(rows of filters 0-4 in turn)")
-    print(f"  16-bit TIFF (deflate) load {tiff_load_ms:.1f} ms")
+    print(f"  16-bit TIFF load: deflate {tiff_load_ms:.1f} ms, LZW (decoded in C++) "
+          f"{lzw_load_ms:.1f} ms")
     print(f"  .pdn (6 layers) load {pdn_ms:.1f} ms: NRBF graph {nrbf_ms:.1f} ms, gzip payloads "
           f"{gzip_ms:.1f} ms; flatten on the card {flatten_ms:.1f} ms")
     print(f"  text rasterise {text_ms:.1f} ms with its effects on the card, {text_cpu_ms:.1f} ms "
           f"with them on the CPU")
     print(f"  encode: 16-bit PNG {png16_ms:.1f} ms, 16-bit TIFF (none) {tiff16_ms:.1f} ms")
+
+
+RAW_SIZE = (4000, 6000)  # rows x columns: a 24 MP APS-C sensor
+# the lossless-JPEG Huffman table (tests/ljpeg_writer.py's): code lengths of
+# the SSSS categories 0-16, canonical codes
+LJPEG_CODE_LENGTHS = (2, 3, 3, 3, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+_TIFF_TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 10: 8}
+
+
+def tiff_bytes(ifds, blobs=(), magic=42, extra=b""):
+    """A little-endian TIFF container.  `ifds` is a list of (entries, next):
+    entries {tag: (type, values)}, next the index of the IFD chained after
+    it or None.  A value ("ifd", i) or ("blob", i) stands for that IFD's or
+    blob's file offset; as the whole value of a type-7 entry it makes the
+    entry point at that IFD's directory or that blob.  Rationals are
+    (numerator, denominator) pairs, ASCII values str.  The file is the
+    header (then `extra`), each IFD followed by its out-of-line values, then
+    the blobs."""
+    import struct
+
+    dir_size = [2 + 12 * len(entries) + 4 for entries, _ in ifds]
+
+    def pointee(v):
+        return isinstance(v, tuple) and v[0] in ("ifd", "blob")
+
+    def count(typ, v):
+        if pointee(v):
+            return dir_size[v[1]] if v[0] == "ifd" else len(blobs[v[1]])
+        return len(v) + 1 if typ == 2 else len(v)
+
+    ifd_off, pos = [], 8 + len(extra)
+    for entries, _ in ifds:
+        ifd_off.append(pos)
+        pos += 2 + 12 * len(entries) + 4
+        for typ, v in entries.values():
+            n = 0 if pointee(v) else _TIFF_TYPE_SIZE[typ] * count(typ, v)
+            pos += n + (n & 1) if n > 4 else 0
+    blob_off = []
+    for b in blobs:
+        blob_off.append(pos)
+        pos += len(b)
+
+    def resolve(x):
+        return (ifd_off if x[0] == "ifd" else blob_off)[x[1]] if isinstance(x, tuple) else x
+
+    def pack(typ, v):
+        if typ == 2:
+            return v.encode() + b"\0"
+        if typ in (1, 7):
+            return bytes(v)
+        if typ in (5, 10):
+            return b"".join(struct.pack("<II" if typ == 5 else "<ii", *p) for p in v)
+        return struct.pack(f"<{len(v)}{'H' if typ == 3 else 'I'}", *map(resolve, v))
+
+    out = bytearray(b"II" + struct.pack("<HI", magic, ifd_off[0]) + extra)
+    for i, (entries, nxt) in enumerate(ifds):
+        area, area_at = bytearray(), ifd_off[i] + dir_size[i]
+        out += struct.pack("<H", len(entries))
+        for tag in sorted(entries):
+            typ, v = entries[tag]
+            if pointee(v):
+                out += struct.pack("<HHII", tag, typ, count(typ, v), resolve(v))
+                continue
+            data = pack(typ, v)
+            if len(data) <= 4:
+                out += struct.pack("<HHI", tag, typ, count(typ, v)) + data.ljust(4, b"\0")
+            else:
+                out += struct.pack("<HHII", tag, typ, count(typ, v), area_at + len(area))
+                area += data + b"\0" * (len(data) & 1)
+        out += struct.pack("<I", ifd_off[nxt] if nxt is not None else 0)
+        out += area
+    for b in blobs:
+        out += b
+    return bytes(out)
+
+
+def ljpeg_bytes(samples, precision):
+    """A lossless JPEG (SOF3) of u16 samples [H, W] or [H, W, C], components
+    interleaved along the row: predictor 1, no point transform, no restarts,
+    the Huffman table LJPEG_CODE_LENGTHS; the bytes tests/ljpeg_writer.py
+    writes for the same arguments, built with numpy rather than bit by bit."""
+    import numpy as np
+
+    s = np.asarray(samples, np.int64)
+    if s.ndim == 2:
+        s = s[..., None]
+    h, w, nc = s.shape
+    order = sorted(range(17), key=lambda k: (LJPEG_CODE_LENGTHS[k], k))
+    codes, code, prev = np.zeros(17, np.int64), 0, 0
+    for sym in order:
+        code <<= LJPEG_CODE_LENGTHS[sym] - prev
+        codes[sym], prev = code, LJPEG_CODE_LENGTHS[sym]
+        code += 1
+    lengths = np.array(LJPEG_CODE_LENGTHS, np.int64)
+    # predictor 1: the left neighbour; the first column the one above; the
+    # first sample 2^(P-1)
+    pred = np.empty_like(s)
+    pred[:, 1:] = s[:, :-1]
+    pred[1:, 0] = s[:-1, 0]
+    pred[0, 0] = 1 << (precision - 1)
+    d = ((s - pred) & 0xFFFF).reshape(-1)
+    half = d == 32768  # category 16: no extra bits
+    d = np.where(d > 32768, d - 65536, d)
+    ssss = np.where(half, 16, np.frexp(np.abs(d).astype(np.float64))[1]).astype(np.int64)
+    extra_n = np.where(half, 0, ssss)
+    extra = np.where(d > 0, d, d + (1 << extra_n) - 1) & ((1 << extra_n) - 1)
+    values = (codes[ssss] << extra_n) | extra
+    nbits = lengths[ssss] + extra_n
+    total = int(nbits.sum())
+    pad = -total % 8  # the last byte filled with 1 bits
+    values = np.append(values, (1 << pad) - 1)
+    nbits = np.append(nbits, pad)
+    # each field lands in one or two big-endian 32-bit words; fields never
+    # share a bit, so the words are sums (exact in f64 below 2^53)
+    off = np.cumsum(nbits) - nbits
+    word, bit = off // 32, off % 32
+    spill = bit + nbits - 32
+    first = np.where(spill > 0, values >> np.maximum(spill, 0),
+                     values << np.maximum(-spill, 0))
+    second = np.where(spill > 0, (values & ((1 << np.maximum(spill, 0)) - 1))
+                      << (32 - np.maximum(spill, 0)), 0)
+    n_words = (total + pad) // 32 + 2
+    words = (np.bincount(word, first.astype(np.float64), n_words)
+             + np.bincount(word + 1, second.astype(np.float64), n_words))
+    data = words.astype(np.uint64).astype(">u4").view(np.uint8)[:(total + pad) // 8]
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)  # byte stuffing
+
+    def segment(marker, payload):
+        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + bytes(payload)
+
+    bits = [0] * 17
+    for n in LJPEG_CODE_LENGTHS:
+        bits[n] += 1
+    sof = [precision, *h.to_bytes(2, "big"), *w.to_bytes(2, "big"), nc]
+    sos = [nc]
+    for c in range(nc):
+        sof += [c + 1, 0x11, 0]
+        sos += [c + 1, 0x00]
+    return (b"\xff\xd8" + segment(0xC4, [0x00] + bits[1:] + order) + segment(0xC3, sof)
+            + segment(0xDA, sos + [1, 0, 0]) + data.tobytes() + b"\xff\xd9")
+
+
+def raw_mosaic(rng, h, w, lo, hi, k):
+    """A CFA mosaic of integer samples in [lo, hi], u16: a smooth scene
+    (waves and ramps, each 2x2 site its own channel gain) plus noise, so
+    that the demosaic and the sRGB curve see real values."""
+    import numpy as np
+
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    scene = (np.float32(0.45) + np.float32(0.3) * np.sin(np.float32(7.0) * x + np.float32(k))
+             * np.cos(np.float32(5.0) * y - np.float32(0.5 * k)) + np.float32(0.2) * x * y)
+    gain = np.array([[0.55, 0.9], [0.9, 0.7]], np.float32)
+    scene = scene * np.tile(gain, ((h + 1) // 2, (w + 1) // 2))[:h, :w]
+    v = lo + scene * np.float32(hi - lo) + rng.normal(0.0, (hi - lo) / 400, (h, w)).astype(
+        np.float32)
+    return np.clip(np.rint(v), lo, hi).astype(np.uint16)
+
+
+def _pack_msb(samples, bits):
+    """An MSB-first continuous bitstream of `bits`-wide samples (14 bits:
+    four samples in seven bytes)."""
+    import numpy as np
+
+    s = samples.reshape(-1).astype(np.uint64)
+    per = 8 // np.gcd(bits, 8)  # samples a group
+    s = np.append(s, np.zeros(-len(s) % per, np.uint64)).reshape(-1, per)
+    acc = np.zeros(len(s), np.uint64)
+    for j in range(per):
+        acc = (acc << np.uint64(bits)) | s[:, j]
+    nbytes = per * bits // 8
+    out = np.stack([(acc >> np.uint64(8 * (nbytes - 1 - b))) & np.uint64(0xFF)
+                    for b in range(nbytes)], axis=1).astype(np.uint8)
+    return out.reshape(-1)[:(samples.size * bits + 7) // 8].tobytes()
+
+
+def _dng_entries(h, w, cfa, extra, segments, tile=None, bits=16, compression=1,
+                 rows_per_strip=None):
+    """One DNG raw IFD (CFA photometric) over `segments` (blob indices)."""
+    e = {254: (4, [0]), 256: (4, [w]), 257: (4, [h]), 258: (3, [bits]), 259: (3, [compression]),
+         262: (3, [32803]), 277: (3, [1]), 50706: (1, [1, 4, 0, 0]),
+         33421: (3, [2, 2]), 33422: (1, list(cfa))}
+    refs = [("blob", i) for i in segments]
+    if tile is None:
+        e.update({278: (4, [rows_per_strip or h]), 273: (4, refs), 279: (4, [0] * len(refs))})
+    else:
+        e.update({322: (4, [tile]), 323: (4, [tile]), 324: (4, refs), 325: (4, [0] * len(refs))})
+    e.update(extra)
+    return e
+
+
+def _with_counts(ifds, blobs):
+    """Fill each strip/tile byte-count entry from the blobs its offsets
+    name."""
+    for entries, _ in ifds:
+        for off_tag, cnt_tag in ((273, 279), (324, 325)):
+            if off_tag in entries:
+                refs = entries[off_tag][1]
+                entries[cnt_tag] = (4, [len(blobs[i]) for _, i in refs])
+    return ifds
+
+
+def raw_files(root, h, w, seed=51):
+    """The RAW phase's camera files at h x w, written from `seed` into
+    `root`: a name -> (family, output shape) map.  DNG: 16-bit strips with a
+    per-site BlackLevel (BlackLevelRepeatDim), AsShotNeutral, ColorMatrix1
+    and an ActiveArea; deflate tiles with predictor 2; lossless-JPEG tiles;
+    LZW strips with predictor 2.  CR2: a 14-bit lossless-JPEG stream in
+    three Canon slices, SensorInfo (masked left border: the black level)
+    and ColorData as-shot levels.  NEF: 14-bit packed, a Nikon MakerNote
+    white balance.  ARW: 16-bit strips with TIFF/EP levels and
+    AsShotNeutral.  RW2: magic 85, sensor borders, per-colour blacks and
+    balances."""
+    import zlib
+
+    import numpy as np
+
+    from paintfe_tpu_torch.io.deep_export import _lzw_encode
+
+    rng = np.random.default_rng(seed)
+    files = {}
+    tile = 512
+    cm = [(7034, 10000), (-804, 10000), (-1014, 10000), (-4420, 10000), (11564, 10000),
+          (3206, 10000), (-852, 10000), (2048, 10000), (6148, 10000)]
+
+    def tiles_of(m):
+        th, tw = -(-h // tile), -(-w // tile)
+        padded = np.zeros((th * tile, tw * tile), m.dtype)
+        padded[:h, :w] = m
+        return [padded[ty * tile:(ty + 1) * tile, tx * tile:(tx + 1) * tile]
+                for ty in range(th) for tx in range(tw)]
+
+    def predict2(m):
+        d = m.copy()
+        d[:, 1:] = m[:, 1:] - m[:, :-1]  # modular u16 differences
+        return d
+
+    def write(name, family, shape, data):
+        (root / name).write_bytes(data)
+        files[name] = (family, shape)
+
+    # DNG, 16-bit strips: per-site black levels, neutral, matrix, active area
+    m = raw_mosaic(rng, h, w, 500, 15800, 0)
+    rows = 250
+    blobs = [m[y:y + rows].astype("<u2").tobytes() for y in range(0, h, rows)]
+    aa = (12, 16, h - 12, w - 16)
+    extra = {50713: (3, [2, 2]), 50714: (3, [512, 520, 516, 508]), 50717: (3, [16000]),
+             50728: (5, [(47, 100), (1, 1), (63, 100)]), 50721: (10, cm),
+             50829: (3, list(aa))}
+    ifds = [(_dng_entries(h, w, (0, 1, 1, 2), extra, range(len(blobs)),
+                          rows_per_strip=rows), None)]
+    write("strips.dng", "dng", (aa[2] - aa[0], aa[3] - aa[1]),
+          tiff_bytes(_with_counts(ifds, blobs), blobs))
+
+    # DNG, deflate tiles with predictor 2
+    m = raw_mosaic(rng, h, w, 256, 16383, 1)
+    blobs = [zlib.compress(predict2(t).astype("<u2").tobytes(), 1) for t in tiles_of(m)]
+    extra = {50714: (3, [256]), 50717: (3, [16383]), 317: (3, [2]),
+             50728: (5, [(52, 100), (1, 1), (71, 100)])}
+    ifds = [(_dng_entries(h, w, (1, 0, 2, 1), extra, range(len(blobs)), tile=tile,
+                          compression=8), None)]
+    write("deflate.dng", "dng", (h, w), tiff_bytes(_with_counts(ifds, blobs), blobs))
+
+    # DNG, lossless-JPEG tiles (two components a row, as DNG writers emit)
+    m = raw_mosaic(rng, h, w, 0, 65535, 2)
+    blobs = [ljpeg_bytes(t.reshape(tile, tile // 2, 2), 16) for t in tiles_of(m)]
+    extra = {50714: (3, [1024]), 50717: (3, [65535]), 50721: (10, cm),
+             50728: (5, [(45, 100), (1, 1), (58, 100)])}
+    ifds = [(_dng_entries(h, w, (2, 1, 1, 0), extra, range(len(blobs)), tile=tile,
+                          compression=7), None)]
+    write("ljpeg.dng", "dng", (h, w), tiff_bytes(_with_counts(ifds, blobs), blobs))
+
+    # DNG, LZW strips with predictor 2
+    m = raw_mosaic(rng, h, w, 128, 4095, 3)
+    rows = 500
+    blobs = [_lzw_encode(predict2(m[y:y + rows]).astype("<u2").tobytes())
+             for y in range(0, h, rows)]
+    extra = {50714: (3, [128]), 50717: (3, [4095]), 317: (3, [2]),
+             50728: (5, [(49, 100), (1, 1), (66, 100)])}
+    ifds = [(_dng_entries(h, w, (0, 1, 1, 2), extra, range(len(blobs)), compression=5,
+                          rows_per_strip=rows), None)]
+    write("lzw.dng", "dng", (h, w), tiff_bytes(_with_counts(ifds, blobs), blobs))
+
+    # CR2: one 14-bit stream in Canon's slices, the masked border black
+    m = raw_mosaic(rng, h, w, 2048, 16000, 4)
+    left, top = max(8, w // 96 & ~1), max(4, h // 100 & ~1)  # the masked borders
+    m[:, :left] = rng.normal(2048.0, 4.0, (h, left)).astype(np.uint16)
+    m[:top] = rng.normal(2048.0, 4.0, (top, w)).astype(np.uint16)
+    n, wa = 2, w // 3
+    widths = [wa] * n + [w - n * wa]
+    cols = np.cumsum([0] + widths)
+    stream = np.concatenate([m[:, a:b].reshape(-1) for a, b in zip(cols[:-1], cols[1:])])
+    lj = ljpeg_bytes(stream.reshape(h, w // 2, 2), 14)
+    colordata = [0] * 1273
+    colordata[63:67] = [2100, 1024, 1024, 1500]
+    sensor = [17, w, h, 0, 0, left, top, w - 1, h - 1] + [0] * 8
+    ifds = [({271: (2, "Canon"), 34665: (4, [("ifd", 1)])}, 3),
+            ({37500: (7, ("ifd", 2))}, None),
+            ({0x00E0: (3, sensor), 0x4001: (3, colordata)}, None),
+            ({256: (4, [w]), 257: (4, [h]), 259: (3, [6]), 273: (4, [("blob", 0)]),
+              279: (4, [len(lj)]), 0xC640: (3, [n, wa, w - n * wa])}, None)]
+    write("canon.cr2", "cr2", (h - top, w - left),
+          tiff_bytes(ifds, [lj], extra=b"CR\x02\x00"))
+
+    # NEF: 14-bit packed, GRBG, the as-shot balance in a Nikon MakerNote
+    m = raw_mosaic(rng, h, w, 0, 16383, 5)
+    packed = _pack_msb(m, 14)
+    mn = b"Nikon\x00\x02\x10\x00\x00" + tiff_bytes(
+        [({0x000C: (5, [(195, 100), (142, 100), (1, 1), (1, 1)])}, None)])
+    ifds = [({254: (4, [1]), 271: (2, "NIKON CORPORATION"), 330: (4, [("ifd", 1)]),
+              34665: (4, [("ifd", 2)])}, None),
+            ({254: (4, [0]), 256: (4, [w]), 257: (4, [h]), 258: (3, [14]), 259: (3, [1]),
+              262: (3, [32803]), 273: (4, [("blob", 0)]), 277: (3, [1]),
+              279: (4, [len(packed)]), 33421: (3, [2, 2]), 33422: (1, [1, 0, 2, 1])}, None),
+            ({37500: (7, ("blob", 1))}, None)]
+    write("nikon.nef", "nef", (h, w), tiff_bytes(ifds, [packed, mn]))
+
+    # ARW: 16-bit strips, TIFF/EP levels and AsShotNeutral
+    m = raw_mosaic(rng, h, w, 512, 16383, 6)
+    payload = m.astype("<u2").tobytes()
+    ifds = [({254: (4, [1]), 271: (2, "SONY"), 330: (4, [("ifd", 1)])}, None),
+            ({254: (4, [0]), 256: (4, [w]), 257: (4, [h]), 258: (3, [16]), 259: (3, [1]),
+              262: (3, [32803]), 273: (4, [("blob", 0)]), 277: (3, [1]),
+              279: (4, [len(payload)]), 33421: (3, [2, 2]), 33422: (1, [0, 1, 1, 2]),
+              50714: (3, [512]), 50717: (3, [16383]),
+              50728: (5, [(48, 100), (1, 1), (69, 100)])}, None)]
+    write("sony.arw", "arw", (h, w), tiff_bytes(ifds, [payload]))
+
+    # RW2: magic 85, borders, per-colour blacks, balances x256
+    m = raw_mosaic(rng, h, w, 128, 4095, 7)
+    top, left, bottom, right = 8, 16, h - 8, w - 16
+    ifds = [({0x0002: (3, [w]), 0x0003: (3, [h]), 0x0004: (3, [top]), 0x0005: (3, [left]),
+              0x0006: (3, [bottom]), 0x0007: (3, [right]), 0x0009: (3, [2]),
+              0x000A: (3, [12]), 0x0011: (3, [497]), 0x0012: (3, [371]),
+              0x001C: (3, [128]), 0x001D: (3, [130]), 0x001E: (3, [127]),
+              0x0118: (4, [("blob", 0)])}, None)]
+    write("panasonic.rw2", "rw2", (bottom - top, right - left),
+          tiff_bytes(ifds, [m.astype("<u2").tobytes()], magic=85))
+    return files
+
+
+# the develop stage of each family (io/raw.py's _develop_*), by the file's
+# family name: (blob, device, timer) -> (linear RGB on the host, matrix)
+def _raw_developers():
+    from paintfe_tpu_torch.io import raw
+
+    return {"dng": raw._develop_dng, "cr2": raw._develop_cr2, "nef": raw._develop_nef,
+            "arw": lambda blob, dev, timer=None: raw._develop_tiffep_cfa(blob, "arw", dev, timer),
+            "rw2": raw._develop_rw2}
+
+
+RAW_STAGES = ("decode", "upload", "develop", "download", "matrix", "srgb", "u8")
+# the RAW phase's CLI runs: (files, script, extra arguments, output directory).
+# Each file goes through the serial headline run once, half of them to JPEG
+# and half to TIFF; the spatial script runs under --shard on the NEF and on
+# the first 1920x1080 --animate frame (a DNG): two shape buckets.  Each run
+# is repeated with --device cpu, where the plain median takes most of a
+# minute a 24 MP frame, so the --shard run holds one 24 MP file.
+RAW_RUNS = {
+    "serial jpeg": (("strips.dng", "ljpeg.dng", "canon.cr2", "panasonic.rw2"), "headline",
+                    ["-f", "jpeg"], "jpeg"),
+    "serial tiff": (("deflate.dng", "lzw.dng", "nikon.nef", "sony.arw"), "headline",
+                    ["-f", "tiff"], "tiff"),
+    "shard spatial": (("nikon.nef", "gif0.dng"), "spatial", ["-f", "jpeg", "--shard"], "shard"),
+}
+RAW_GIF = ("gif0.dng", "gif1.nef", "gif2.arw", "gif3.dng")
+
+
+def raw_launches(files, runs=RAW_RUNS):
+    """K-blur, K-median and K-warp launches each run of `runs` must make on
+    the card: serially one K-blur an image (the headline script); under
+    --shard one of each kernel a shape bucket of the inputs (the spatial
+    script), the buckets being the decoded sizes (`files` maps a name to
+    its family and output shape)."""
+    out = {}
+    for tag, (names, _, extra, _) in runs.items():
+        if "--shard" in extra:
+            n = len({files[name][1] for name in names})
+            out[tag] = {"gaussian_blur_fused": n, "median_kernel": n, "gather_bilinear_u8": n}
+        else:
+            out[tag] = {"gaussian_blur_fused": len(names), "median_kernel": 0,
+                        "gather_bilinear_u8": 0}
+    return out
+
+
+def raw_gif_files(root, h, w, seed=52):
+    """Four h x w RAW frames of the full sensor size (no crop), for
+    --animate: two DNGs (16-bit strips), a NEF and an ARW, each a scene of
+    its own; a name -> (family, output shape) map as raw_files gives."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for k, name in enumerate(RAW_GIF):
+        m = raw_mosaic(rng, h, w, 0, 16383, 10 + k)
+        if name.endswith(".dng"):
+            blob = m.astype("<u2").tobytes()
+            ifds = [(_dng_entries(h, w, (0, 1, 1, 2), {50717: (3, [16383])}, [0]), None)]
+            data = tiff_bytes(_with_counts(ifds, [blob]), [blob])
+        else:
+            payload = m.astype("<u2").tobytes()
+            ifds = [({254: (4, [1]), 330: (4, [("ifd", 1)])}, None),
+                    ({254: (4, [0]), 256: (4, [w]), 257: (4, [h]), 258: (3, [16]),
+                      259: (3, [1]), 262: (3, [32803]), 273: (4, [("blob", 0)]),
+                      277: (3, [1]), 279: (4, [len(payload)]), 33421: (3, [2, 2]),
+                      33422: (1, [1, 0, 2, 1]), 50717: (3, [16383])}, None)]
+            data = tiff_bytes(ifds, [payload])
+        (root / name).write_bytes(data)
+    return {name: (name[-3:], (h, w)) for name in RAW_GIF}
+
+
+def drive_raw_path(dev, tmp, card):
+    """The RAW phase at RAW_SIZE (24 MP): raw_files' eight camera files,
+    each family's develop stage held against the CPU's and timed by
+    sub-stage; the native LZW decode against the pure one on 1 MiB; the
+    CLI runs of RAW_RUNS and a GIF of four 1920x1080 RAW frames on the card,
+    each also run with --device cpu in the background, every output file
+    byte-equal to that run's, and K-blur, K-median and K-warp launching
+    exactly raw_launches' counts (four K-blur launches for the GIF)."""
+    from PIL import Image
+
+    from paintfe_tpu_torch import cli
+    from paintfe_tpu_torch.io import deep_export
+    from paintfe_tpu_torch.io.codecs import load_frames
+
+    started = time.perf_counter()
+    root = tmp / "raw"
+    (root / "in").mkdir(parents=True)
+    (root / "gif").mkdir()
+    (root / "headline.rhai").write_text(HEADLINE)
+    (root / "spatial.rhai").write_text(SPATIAL)
+    h, w = RAW_SIZE
+    files = raw_files(root / "in", h, w)
+    frames = raw_gif_files(root / "gif", *FHD)
+    print(f"  raw: wrote {len(files)} camera files at {w}x{h} and {len(RAW_GIF)} at "
+          f"{FHD[1]}x{FHD[0]} ({time.perf_counter() - started:.3f} s)")
+
+    def argv(names, script, extra, out, device):
+        return ["-i", *(str(root / ("gif" if n in frames else "in") / n) for n in names),
+                "-s", str(root / f"{script}.rhai"), *extra, "--output-dir",
+                str(root / f"{device}_{out}"), "--device", device]
+
+    def gif_argv(device):
+        return ["-i", *(str(root / "gif" / n) for n in RAW_GIF), "-s", str(root / "headline.rhai"),
+                "--animate", str(root / f"{device}.gif"), "--fps", "8", "--device", device]
+
+    # the --device cpu twins in the background, three at a time, the
+    # longest (the plain median of the --shard run) first
+    cpu_runs = sorted(RAW_RUNS.items(), key=lambda kv: "--shard" not in kv[1][2])
+    cpu = _background_cli([(f"raw {tag}", argv(*spec, "cpu")) for tag, spec in cpu_runs]
+                          + [("raw gif", gif_argv("cpu"))], workers=3)
+    try:
+        _raw_develop_checks(dev, root, files, card)
+        blob = (root / "in" / "sony.arw").read_bytes()[-(1 << 20):]
+        enc = deep_export._lzw_encode(blob)
+        t0 = time.perf_counter()
+        native = deep_export._lzw_decode(enc, len(blob))
+        t1 = time.perf_counter()
+        plain = deep_export._lzw_decode_plain(enc, len(blob))
+        t2 = time.perf_counter()
+        if not native == plain == blob:
+            raise CheckFailed("raw: the native LZW decode differs from the pure one on 1 MiB")
+        print(f"  ok  raw: the native LZW decode equals the pure one on 1 MiB ({len(enc)} bytes "
+              f"coded): {(t1 - t0) * 1e3:.1f} ms native, {(t2 - t1) * 1e3:.1f} ms pure Python")
+
+        shapes = {**files, **frames}
+        expected = raw_launches(shapes)
+        for tag, (names, script, extra, out) in RAW_RUNS.items():
+            c0 = _counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv(names, script, extra, out, "cuda"))
+            seconds = time.perf_counter() - t0
+            c1 = _counts()
+            got = {name: c1[name] - c0[name] for name in expected[tag]}
+            print(f"  raw {tag}: rc {rc} ({seconds:.3f} s on the card, {len(names)} files); "
+                  f"launches {got}")
+            if rc != 0:
+                raise CheckFailed(f"raw {tag}: CLI exit code {rc}")
+            if got != expected[tag]:
+                raise CheckFailed(f"raw {tag}: launches {got}, expected {expected[tag]}")
+            for name in names:
+                ext = {"jpeg": "jpg"}.get(extra[1], extra[1])
+                with Image.open(root / f"cuda_{out}" / f"{pathlib.Path(name).stem}.{ext}") as im:
+                    if (im.height, im.width) != shapes[name][1]:
+                        raise CheckFailed(f"raw {tag}: {name} came out {im.width}x{im.height}, "
+                                          f"expected {shapes[name][1][1]}x{shapes[name][1][0]}")
+        c0 = _counts()
+        t0 = time.perf_counter()
+        rc = cli.main(gif_argv("cuda"))
+        seconds = time.perf_counter() - t0
+        launches = _counts()["gaussian_blur_fused"] - c0["gaussian_blur_fused"]
+        print(f"  raw --animate GIF: rc {rc} ({seconds:.3f} s on the card, {len(RAW_GIF)} RAW "
+              f"frames at {FHD[1]}x{FHD[0]}, NeuQuant in C++); K-blur {launches} launches")
+        if rc != 0 or launches != len(RAW_GIF) or len(load_frames(root / "cuda.gif")[0]) != 4:
+            raise CheckFailed(f"raw --animate GIF: rc {rc}, K-blur {launches} launches, "
+                              f"expected 0 and {len(RAW_GIF)}, four frames")
+    finally:
+        cpu_results = [f.result() for f in cpu]
+    for ((tag, (_, _, _, out)), (rc_cpu, seconds)) in zip(cpu_runs, cpu_results):
+        if rc_cpu != 0:
+            raise CheckFailed(f"raw {tag}: the --device cpu run's exit code {rc_cpu}")
+        names = _same_files(f"raw {tag}", root / f"cuda_{out}", root / f"cpu_{out}")
+        print(f"  ok  raw {tag}: {len(names)} files equal the --device cpu run's bytes (that "
+              f"run {seconds:.3f} s, beside the card's)")
+    rc_cpu, seconds = cpu_results[-1]
+    if rc_cpu != 0 or (root / "cuda.gif").read_bytes() != (root / "cpu.gif").read_bytes():
+        raise CheckFailed(f"raw --animate GIF differs from the --device cpu run's (rc {rc_cpu})")
+    print(f"  ok  raw --animate GIF equals the --device cpu run's bytes (that run {seconds:.3f} s)")
+    print(f"  raw phase: {time.perf_counter() - started:.1f} s wall [card: {card}]")
+
+
+def _raw_develop_checks(dev, root, files, card):
+    """Each RAW file's load on the card, timed by sub-stage (RAW_STAGES)
+    with the card's busy time over the load, its develop stage (linear RGB)
+    held against the same function on the CPU and its RGBA against the
+    CPU's."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paintfe_tpu_torch.io import raw
+    from paintfe_tpu_torch.utils.profiling import StageTimer
+
+    developers = _raw_developers()
+    # warm-up: the first develop on the card loads torch's kernels
+    developers["dng"]((root / "gif" / RAW_GIF[0]).read_bytes(), dev)
+    print(f"raw loads, {RAW_SIZE[1]}x{RAW_SIZE[0]} each, wall ms by stage [card: {card}]:")
+    for name, (family, shape) in files.items():
+        blob = (root / "in" / name).read_bytes()
+        develop = developers[family]
+        timer = StageTimer(dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rgb, cm = develop(blob, dev, timer)
+            rgba = raw._finish_raw(rgb, cm, timer)
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = _device_us(prof)[0] / 1e3
+        want_rgb, want_cm = develop(blob, "cpu")
+        if rgb.shape != want_rgb.shape or not np.array_equal(rgb, want_rgb):
+            raise CheckFailed(f"raw {name}: the card's develop stage differs from the CPU's")
+        if not np.array_equal(rgba, raw._finish_raw(want_rgb, want_cm)) or rgba.shape[:2] != shape:
+            raise CheckFailed(f"raw {name}: the card's RGBA differs from the CPU's, or its shape "
+                              f"{rgba.shape[:2]} from {shape}")
+        ms = dict.fromkeys(RAW_STAGES, 0.0)
+        for stage, seconds in timer.stages:
+            ms[stage] += seconds * 1e3
+        print(f"  {name} ({family}, {shape[1]}x{shape[0]}): load {wall:.1f} ms = "
+              + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+              + f"; card busy {busy:.2f} ms ({busy / wall * 100:.2f}% of the load)")
+    print("  ok  raw: every family's develop stage on the card equals the CPU's (linear RGB "
+          "and RGBA, tolerance 0)")
 
 
 def check_streams(dev, rounds=20):
@@ -3175,6 +3751,12 @@ def main() -> int:
         for line in pathlib.Path(BUILD_INFO["log"]).read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
+
+    from paintfe_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load()  # the host C++ (RAW decoders, LZW, NeuQuant, PNG defilter): g++
+    print(f"native build: {time.perf_counter() - t0:.3f} s -> {native.library_path()}")
 
     gen = torch.Generator().manual_seed(0)
     errs = {name: [] for name in KERNEL_SOURCES}

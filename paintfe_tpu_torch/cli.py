@@ -10,13 +10,14 @@ never a silent run on the CPU.  `--shard` runs the traced op chain over
 shape-bucketed batches on that device (parallel/batch.py); layered
 documents (.pfe, .pdn) take the serial canvas path there too.  Inputs are
 raster images, 16-bit PNGs and 16/32-bit TIFFs (their deep payload kept
-and exported), .pfe documents (text layers rasterized before the flatten)
-and Paint.NET .pdn documents.  `--animate OUT` writes every processed
-input as one frame of a GIF, APNG or WebP animation (with --shard too);
-`--trace-dir DIR` writes a torch.profiler trace of the serial run.
+and exported), .pfe documents (text layers rasterized before the flatten),
+Paint.NET .pdn documents and RAW camera files (DNG, CR2, NEF/NRW, ARW,
+PEF, SRW, ORF, RW2/RWL), developed on `--device` on every route.
+`--animate OUT` writes every processed input as one frame of a GIF, APNG
+or WebP animation (with --shard too); `--trace-dir DIR` writes a
+torch.profiler trace of the serial run.
 
-Not yet ported: RAW camera inputs (the codec reports them, rc 1 per input)
-and a multi-host launch (PAINTFE_COORDINATOR, rc 1).
+Not yet ported: a multi-host launch (PAINTFE_COORDINATOR, rc 1).
 
     python -m paintfe_tpu_torch.cli -i 'docs/*.pfe' -s fx.rhai \\
         --output-dir out -f png --device cuda
@@ -39,12 +40,13 @@ from paintfe_tpu_torch.core.canvas import Canvas, canonicalize_tiles
 from paintfe_tpu_torch.io import codecs, deep_export, pfe
 from paintfe_tpu_torch.io.nrbf import NrbfError
 from paintfe_tpu_torch.io.pdn import PdnError
+from paintfe_tpu_torch.io.raw import RawError
 from paintfe_tpu_torch.scripting import ScriptError, apply_canvas_ops, execute_script_sync
 
 # per-file keep-going: every error class an input file can produce (a class
 # missing here crashes the whole batch)
-_INPUT_ERRORS = (codecs.CodecError, pfe.PfeError, PdnError, NrbfError, ScriptError,
-                 OSError, ValueError)
+_INPUT_ERRORS = (codecs.CodecError, pfe.PfeError, PdnError, NrbfError, RawError,
+                 ScriptError, OSError, ValueError)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -136,10 +138,11 @@ def build_output_path(input_path: pathlib.Path, output: Optional[str],
     return candidate
 
 
-def load_canvas(path: pathlib.Path) -> Canvas:
+def load_canvas(path: pathlib.Path, device="cuda") -> Canvas:
     """One input as a document: a .pfe or .pdn as its layers, a 16-bit PNG
     or 16/32-bit TIFF as one layer that keeps its deep payload, any other
-    raster image as a one-layer canvas."""
+    raster image as a one-layer canvas (a RAW camera file developed on
+    `device`)."""
     path = pathlib.Path(path)
     if path.suffix.lower() == ".pfe":
         return pfe.load_pfe(str(path))
@@ -154,7 +157,7 @@ def load_canvas(path: pathlib.Path) -> Canvas:
         canvas.layers[0].pixel_format = pixel_format
         canvas.layers[0].deep_pixels = buf
         return canvas
-    return Canvas.from_image(codecs.load_image(path))
+    return Canvas.from_image(codecs.load_image(path, device=device))
 
 
 def _commit_script_result(canvas, idx, result, new_w, new_h, canvas_ops):
@@ -193,7 +196,7 @@ def run_one(input_path: pathlib.Path, output_path: pathlib.Path,
     if timer is None:
         timer = StageTimer(device)
     with timer.stage("load"):
-        canvas = load_canvas(input_path)
+        canvas = load_canvas(input_path, device)
 
     if script_source is not None:
         idx = canvas.active_layer_index
@@ -320,7 +323,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 def _compute_frame(input_path, script_source, device="cuda") -> np.ndarray:
     """One input as its processed, flattened frame (the --animate unit of
     work; may raise any of _INPUT_ERRORS)."""
-    canvas = load_canvas(input_path)
+    canvas = load_canvas(input_path, device)
     if script_source is not None:
         idx = canvas.active_layer_index
         result, new_w, new_h, _console, canvas_ops = execute_script_sync(

@@ -85,7 +85,7 @@ class Project:
                 canvas.layers[0].pixel_format = pixel_format
                 canvas.layers[0].deep_pixels = buf
             else:
-                canvas = Canvas.from_image(codecs.load_image(path))
+                canvas = Canvas.from_image(codecs.load_image(path, device=device))
         return cls(
             canvas=canvas,
             history=HistoryManager(),

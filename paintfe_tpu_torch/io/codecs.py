@@ -5,9 +5,10 @@ Behavioral contract: src/io.rs — read PNG/JPEG/WebP/BMP/TIFF/TGA/GIF/APNG/ICO
 (io.rs:36-80, 693-1100), write PNG/JPEG/WebP(lossless default)/BMP/TGA/ICO/
 TIFF/GIF/APNG (encode_and_write io.rs:1723+), animated decode/encode with
 "each visible layer = one frame" semantics and fps -> centisecond GIF delay
-max(round(100/fps), 1) (io.rs:2774-2885).  RAW camera formats are not yet
-ported (the JAX package decodes DNG/CR2/NEF/... natively) and raise a clear
-error.  GIF palettes come from the port's NeuQuant (io/neuquant.py).
+max(round(100/fps), 1) (io.rs:2774-2885).  RAW camera files (DNG, CR2, NEF/NRW, ARW, PEF, SRW,
+ORF, RW2/RWL) decode through io/raw.py, which develops them on the torch
+device passed to load_image; the other RAW extensions raise a clear error.
+GIF palettes come from the port's NeuQuant (io/neuquant.py).
 """
 
 from __future__ import annotations
@@ -33,12 +34,32 @@ def format_extension(fmt: str) -> str:
     return {"jpeg": "jpg"}.get(fmt, fmt)
 
 
-def load_image(path) -> np.ndarray:
-    """Load any supported raster file as RGBA u8 [H, W, 4]."""
+def load_image(path, device="cuda") -> np.ndarray:
+    """Load any supported raster file as RGBA u8 [H, W, 4].  A RAW camera
+    file is developed on `device` (the card unless the caller asks for the
+    CPU); no other format touches it."""
     ext = pathlib.Path(path).suffix.lower().lstrip(".")
+    if ext in ("dng", "cr2", "nef", "nrw", "arw", "pef", "srw", "orf",
+               "rw2", "rwl"):
+        from paintfe_tpu_torch.io import raw
+
+        # .nrw is Nikon's NEF variant and .rwl Leica's RW2 variant, each
+        # sharing the donor format's TIFF layout
+        loader = {"dng": raw.load_dng, "cr2": raw.load_cr2,
+                  "nef": raw.load_nef, "nrw": raw.load_nef,
+                  "arw": raw.load_arw, "pef": raw.load_pef,
+                  "srw": raw.load_srw, "orf": raw.load_orf,
+                  "rw2": raw.load_rw2, "rwl": raw.load_rw2}[ext]
+        try:
+            return loader(path, device=device)
+        except raw.RawError as e:
+            raise CodecError(f"failed to decode {ext.upper()} '{path}': {e}")
     if ext in RAW_EXTS:
-        raise CodecError(f"RAW camera format '.{ext}' is not yet ported to "
-                         "paintfe_tpu_torch")
+        raise CodecError(
+            f"RAW camera format '.{ext}' requires a raw decoder not present "
+            "in this environment (DNG/CR2/NEF/ARW/PEF/SRW/ORF/RW2 decode "
+            "natively)"
+        )
     try:
         img = Image.open(path)
         img.load()

@@ -17,9 +17,9 @@ The read half keeps a 16-bit PNG's or a 16/32-bit TIFF's deep payload
 TIFF encoders are self-contained too (PIL cannot write 16-bit RGBA): PNG
 bit depth 16 color type 6 big-endian, TIFF little-endian with
 none/LZW/deflate strips.  The byte-serial loops, the PNG defilter and the
-LZW encoder, run in the port's C++ (native/bytecodec.cpp); their
-pure-Python versions (`png_defilter_plain`, `_lzw_encode_plain`) are the
-oracle the tests hold them to.
+LZW encoder and decoder, run in the port's C++ (native/bytecodec.cpp);
+their pure-Python versions (`png_defilter_plain`, `_lzw_encode_plain`,
+`_lzw_decode_plain`) are the oracle the tests hold them to.
 """
 
 from __future__ import annotations
@@ -483,7 +483,30 @@ def write_tiff_f32(path, width: int, height: int, pixels: np.ndarray):
 
 
 def _lzw_decode(data: bytes, max_bytes: Optional[int] = None) -> bytes:
-    """Inverse of _lzw_encode (TIFF early-change variant).
+    """_lzw_decode_plain's bytes through native/bytecodec.cpp, on every
+    stream: a code that the fresh table after a clear does not hold raises
+    IndexError, as the pure decoder's table lookup does."""
+    import ctypes
+
+    from paintfe_tpu_torch import native
+
+    lib = native.load()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = lib.tiff_lzw_decode((ctypes.c_uint8 * len(data)).from_buffer_copy(data), len(data),
+                            -1 if max_bytes is None else max_bytes, ctypes.byref(out))
+    if n == -1:
+        raise IndexError("list index out of range")
+    if n < 0:
+        raise MemoryError("tiff_lzw_decode: out of memory")
+    try:
+        return ctypes.string_at(out, n)
+    finally:
+        lib.pfe_free(out)
+
+
+def _lzw_decode_plain(data: bytes, max_bytes: Optional[int] = None) -> bytes:
+    """Inverse of _lzw_encode (TIFF early-change variant), in pure Python:
+    the oracle of native/bytecodec.cpp's tiff_lzw_decode.
 
     `max_bytes` reproduces libtiff's contract: the decoder stops once the
     expected strip size is produced and never reads further.  At the
@@ -535,62 +558,13 @@ def _lzw_decode(data: bytes, max_bytes: Optional[int] = None) -> bytes:
     return bytes(out)
 
 
-# TIFF field type -> bytes a value
-_TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
-               11: 4, 12: 8}
-
-
-def _read_values(blob: bytes, end: str, typ: int, count: int, value_field: bytes):
-    """One IFD entry's values (the JAX package's io/raw.py _read_values):
-    inline when they fit the 4-byte field, else at its offset; None for an
-    unknown type."""
-    size = _TYPE_SIZES.get(typ)
-    if size is None:
-        return None
-    total = size * count
-    if total <= 4:
-        data = value_field[:total]
-    else:
-        (off,) = struct.unpack(end + "I", value_field)
-        data = blob[off:off + total]
-    if typ == 2:  # ASCII: NUL-terminated string
-        return [data.split(b"\0", 1)[0].decode("ascii", errors="replace")]
-    if typ in (1, 6, 7):
-        return list(data)
-    if typ == 3:
-        return list(struct.unpack(end + f"{count}H", data))
-    if typ == 8:
-        return list(struct.unpack(end + f"{count}h", data))
-    if typ in (4, 9):
-        return list(struct.unpack(end + f"{count}{'I' if typ == 4 else 'i'}", data))
-    if typ in (5, 10):
-        fmtc = "I" if typ == 5 else "i"
-        raw = struct.unpack(end + f"{2 * count}{fmtc}", data)
-        return [raw[2 * i] / raw[2 * i + 1] if raw[2 * i + 1] else 0.0
-                for i in range(count)]
-    if typ == 11:
-        return list(struct.unpack(end + f"{count}f", data))
-    return list(struct.unpack(end + f"{count}d", data))  # typ == 12
-
-
-def _parse_ifd(blob: bytes, end: str, off: int):
-    """The tags of the IFD at `off` ({tag: [values]}) and the next IFD's
-    offset."""
-    (n_tags,) = struct.unpack(end + "H", blob[off:off + 2])
-    tags = {}
-    for k in range(n_tags):
-        base = off + 2 + k * 12
-        tag, typ, count = struct.unpack(end + "HHI", blob[base:base + 8])
-        vals = _read_values(blob, end, typ, count, blob[base + 8:base + 12])
-        if vals is not None:
-            tags[tag] = vals
-    (nxt,) = struct.unpack(end + "I", blob[off + 2 + n_tags * 12:off + 2 + n_tags * 12 + 4])
-    return tags, nxt
-
-
 def read_tiff_deep(path) -> np.ndarray:
     """An RGB(A) TIFF (chunky, none/LZW/deflate strips, either byte order)
     as u8, u16 or f32 [H, W, 4]; RGB gets opaque alpha."""
+    # raw.py's IFD parser; imported here, since raw.py imports _lzw_decode
+    # from this module
+    from paintfe_tpu_torch.io.raw import _parse_ifd
+
     with open(path, "rb") as fh:
         blob = fh.read()
     if blob[:4] == b"II*\0":

@@ -1,13 +1,14 @@
-"""NeuQuant RGBA palette quantization for GIF export (the port's copy of
-paintfe_tpu.io.neuquant's numpy trainer).
+"""NeuQuant RGBA palette quantization for GIF export (the port of
+paintfe_tpu.io.neuquant).
 
 The reference's GIF encoder builds its palettes with the color_quant
 crate's NeuQuant (src/io.rs:2960-2989: `NeuQuant::new(10, colors, rgba)`
-then `index_of` per pixel).  The JAX package trains with a native C++
-library when it can build one and with this numpy trainer otherwise; both
-give the same palette and indices (tests/test_torch_codecs.py), so the port
-keeps only the numpy one.  The sample walk is sequential, so a 4K frame
-takes tens of seconds here.
+then `index_of` per pixel).  `quantize_rgba` trains with the port's C++
+(native/neuquant.cpp, the JAX package's trainer): the sample walk is
+sequential, about a second a 1920x1080 frame there against tens of seconds
+a 4K frame in numpy.  A failed g++ build raises.  The numpy trainer
+(`quantize_rgba_plain`) is the plain version the tests hold the native one
+against; both give the JAX package's palette and indices.
 
 `quantize_rgba(frame, colors)` mirrors the reference fn of the same name:
 returns (palette [colors, 3] u8, indices [H*W] u8).
@@ -90,6 +91,28 @@ def quantize_rgba(frame: np.ndarray,
 
     Trains on RGBA (alpha participates in the distance like color_quant)
     but returns an RGB palette, exactly as io.rs:2968-2979 does."""
+    import ctypes
+
+    from paintfe_tpu_torch import native
+
+    colors = int(np.clip(colors, 2, 256))
+    flat = np.ascontiguousarray(frame, np.uint8).reshape(-1, 4)
+    n = flat.shape[0]
+    lib = native.load()  # a failed build raises with g++'s message
+    pal = np.zeros((colors, 4), np.uint8)
+    indices = np.zeros(n, np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rc = lib.neuquant_quantize(flat.ctypes.data_as(u8p), n, SAMPLEFAC, colors,
+                               pal.ctypes.data_as(u8p), indices.ctypes.data_as(u8p))
+    if rc != 0:
+        raise ValueError(f"neuquant_quantize refused {n} pixels at {colors} colors (rc {rc})")
+    return pal[:, :3].copy(), indices
+
+
+def quantize_rgba_plain(frame: np.ndarray,
+                        colors: int) -> Tuple[np.ndarray, np.ndarray]:
+    """quantize_rgba with the numpy trainer: the plain version of
+    native/neuquant.cpp."""
     colors = int(np.clip(colors, 2, 256))
     flat = np.ascontiguousarray(frame, np.uint8).reshape(-1, 4)
     n = flat.shape[0]

@@ -1,12 +1,16 @@
-"""The port's host-side C++: native/bytecodec.cpp's PNG defilter and TIFF
-LZW encoder (the counterpart of the part of paintfe_tpu.native that builds
-and binds those two functions).
+"""The port's host-side C++ (the counterpart of paintfe_tpu.native without
+its inpainting): bytecodec.cpp's PNG defilter and TIFF LZW encoder and
+decoder, ljpeg.cpp's lossless-JPEG (SOF3) and jpegdct.cpp's baseline-DCT
+decoders for RAW containers (io/raw.py), and neuquant.cpp's GIF palette
+trainer (io/neuquant.py).
 
-g++ builds the source at first use into ``paintfe_tpu_torch/build/``
-(git-ignored), under a name keyed by a hash of the source and flags, as
+g++ builds the sources at first use, into one library, into
+``paintfe_tpu_torch/build/`` (git-ignored), under a name keyed by a hash of the
+sources and flags, as
 utils/cuda_build.py does for the kernels; a failed build raises with the
-compiler's message.  ``-ffp-contract=off`` as in the JAX package (the code
-is integer-only, so it changes nothing today).
+compiler's message: no caller falls back to Python when the build fails.
+``-ffp-contract=off`` as in the JAX package: NeuQuant's f64 updates and the
+DCT's float IDCT must not fuse a multiply and an add.
 """
 
 from __future__ import annotations
@@ -19,15 +23,26 @@ import pathlib
 import subprocess
 
 _DIR = pathlib.Path(__file__).resolve().parent
-SOURCES = (_DIR / "bytecodec.cpp",)
+SOURCES = tuple(_DIR / name for name in (
+    "bytecodec.cpp", "ljpeg.cpp", "jpegdct.cpp", "neuquant.cpp"))
 BUILD_DIR = _DIR.parent / "build"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-ffp-contract=off", "-std=c++17")
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_U16P = ctypes.POINTER(ctypes.c_uint16)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+_U32, _U64 = ctypes.c_uint32, ctypes.c_uint64
 _SIGNATURES = {
-    "png_defilter": ((_U8P, _U8P, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32),
-                     ctypes.c_int),
-    "tiff_lzw_encode": ((_U8P, ctypes.c_uint64, _U8P, ctypes.c_uint64), ctypes.c_int64),
+    "png_defilter": ((_U8P, _U8P, _U32, _U32, _U32), ctypes.c_int),
+    "tiff_lzw_encode": ((_U8P, _U64, _U8P, _U64), ctypes.c_int64),
+    "tiff_lzw_decode": ((_U8P, _U64, ctypes.c_int64, ctypes.POINTER(_U8P)), ctypes.c_int64),
+    "pfe_free": ((ctypes.c_void_p,), None),
+    "ljpeg_info": ((_U8P, _U32, _U32P), ctypes.c_int),
+    "ljpeg_decode": ((_U8P, _U32, _U16P, _U64), ctypes.c_int),
+    "jpegdct_info": ((_U8P, _U32, _U32P), ctypes.c_int),
+    "jpegdct_decode": ((_U8P, _U32, _U8P, _U64), ctypes.c_int),
+    "neuquant_quantize": ((_U8P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _U8P, _U8P),
+                          ctypes.c_int),
 }
 
 
@@ -36,7 +51,7 @@ def library_path() -> pathlib.Path:
     for src in SOURCES:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libpfe_bytecodec_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libpfe_native_{h.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,6 +10,12 @@
 //     interpreter.
 //   * tiff_lzw_encode — TIFF6 LZW with the early-change width bump,
 //     identical emission order to deep_export._lzw_encode_plain (the oracle).
+//   * tiff_lzw_decode — its inverse, the bytes of deep_export._lzw_decode_plain
+//     (the oracle) on every stream, garbage and truncated ones included: the
+//     same early width bump, the same stop at max_bytes, a code past the
+//     table's end read as prev + prev[0], and the same refusal of a code
+//     past the fresh table right after a clear.  Strips of DNG/TIFF inputs
+//     go through it.
 //
 // Both are inherently byte-serial (left-neighbor / dictionary dependency),
 // which is why they run on the host and not on the card.
@@ -125,5 +131,86 @@ int64_t tiff_lzw_encode(const uint8_t* data, uint64_t n,
     free(table);
     return overflow ? -1 : (int64_t)pos;
 }
+
+// TIFF6 LZW decode.  max_bytes < 0 decodes to the end of the stream (EOI or
+// the last whole code); otherwise decoding stops once max_bytes bytes are
+// out and the result is cut to max_bytes.  *out receives a malloc'd buffer
+// (free it with pfe_free) and the return value is its length; -1 when a code
+// follows a clear (or the start) that the fresh table does not hold, -2
+// when memory runs out.  Entries are kept as (prefix code, first byte, last
+// byte, length) chains; the table counts entries past 4096, which no 12-bit
+// code can reach, as the oracle's list does.
+int64_t tiff_lzw_decode(const uint8_t* data, uint64_t n, int64_t max_bytes,
+                        uint8_t** out) {
+    enum { CLEAR = 256, EOI = 257, SLOTS = 4096 };
+    uint16_t prefix[SLOTS];
+    uint8_t first[SLOTS], last[SLOTS];
+    uint32_t length[SLOTS];
+    for (int c = 0; c < 256; ++c) {
+        prefix[c] = 0xFFFF;
+        first[c] = last[c] = (uint8_t)c;
+        length[c] = 1;
+    }
+    uint64_t cap = max_bytes >= 0 ? (uint64_t)max_bytes + SLOTS : 2 * n + SLOTS;
+    uint8_t* buf = (uint8_t*)malloc(cap);
+    if (!buf) return -2;
+    uint64_t pos = 0, table_len = 258, i = 0;
+    uint32_t bitbuf = 0;
+    int bitcnt = 0, width = 9, prev = -1;
+    while (max_bytes < 0 || pos < (uint64_t)max_bytes) {
+        while (bitcnt < width && i < n) {
+            bitbuf = (bitbuf << 8) | data[i++];
+            bitcnt += 8;
+        }
+        if (bitcnt < width) break;
+        bitcnt -= width;
+        const int code = (int)((bitbuf >> bitcnt) & ((1u << width) - 1));
+        bitbuf &= (1u << bitcnt) - 1;
+        if (code == EOI) break;
+        if (code == CLEAR) {
+            table_len = 258;
+            width = 9;
+            prev = -1;
+            continue;
+        }
+        int entry = code;
+        if (prev < 0) {
+            if ((uint64_t)code >= table_len) { free(buf); return -1; }
+        } else {
+            // the new entry: prev + the first byte of this code's string,
+            // or of prev's own when the code is past the table's end
+            const bool known = (uint64_t)code < table_len;
+            if (table_len < SLOTS) {
+                prefix[table_len] = (uint16_t)prev;
+                first[table_len] = first[prev];
+                last[table_len] = known ? first[code] : first[prev];
+                length[table_len] = length[prev] + 1;
+            }
+            if (!known) entry = (int)table_len;  // table_len < SLOTS here
+            ++table_len;
+        }
+        const uint32_t len = length[entry];
+        if (pos + len > cap) {
+            cap = 2 * cap + len;
+            uint8_t* grown = (uint8_t*)realloc(buf, cap);
+            if (!grown) { free(buf); return -2; }
+            buf = grown;
+        }
+        int k = entry;
+        for (uint32_t j = len; j-- > 0;) {
+            buf[pos + j] = last[k];
+            k = prefix[k];
+        }
+        pos += len;
+        prev = entry;
+        // decoder grows one slot early (TIFF early change)
+        if (table_len == (1u << width) - 1 && width < 12) ++width;
+    }
+    if (max_bytes >= 0 && pos > (uint64_t)max_bytes) pos = (uint64_t)max_bytes;
+    *out = buf;
+    return (int64_t)pos;
+}
+
+void pfe_free(void* p) { free(p); }
 
 }  // extern "C"

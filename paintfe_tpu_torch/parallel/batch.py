@@ -9,8 +9,9 @@ bucket through the chain on the device once FLUSH_AT images have gathered
 pool, or collect them as frames.  Scripts that touch pixels directly run
 per image, still with keep-going semantics.  Raster inputs load through
 the u8 codec, as the JAX package's --shard loads them (a 16-bit input is
-PIL's 8-bit reading of it); layered documents (.pfe, .pdn) take the serial
-canvas path.
+PIL's 8-bit reading of it; a RAW camera file is developed on the run's
+device, in the decode-ahead threads); layered documents (.pfe, .pdn) take
+the serial canvas path.
 
 This module imports only numpy and the codecs at the top: the encode pool's
 spawn workers import it to find `_encode_one`.
@@ -101,6 +102,7 @@ def _run_buckets(inputs, script_source, plan, device, per_image, on_result, stat
     at the end.  on_result(idx, image) takes each processed image; a bucket
     that fails retries its images with per_image, which reports each error
     itself; an input that does not decode sets state["failed"]."""
+    from paintfe_tpu_torch.io import codecs
     from paintfe_tpu_torch.parallel.pipeline import NotVectorizable, run_batch, trace_script
     from paintfe_tpu_torch.parallel.prefetch import prefetch_images
 
@@ -132,7 +134,10 @@ def _run_buckets(inputs, script_source, plan, device, per_image, on_result, stat
             flat.append(idx)
     buckets = defaultdict(list)  # (h, w) -> [input index]
     loaded = {}
-    for k, (_, img) in enumerate(prefetch_images([inputs[i] for i in flat])):
+    def load(path):
+        return codecs.load_image(path, device=device)
+
+    for k, (_, img) in enumerate(prefetch_images([inputs[i] for i in flat], load)):
         idx = flat[k]
         if isinstance(img, Exception):
             print(f"  error: {img}", file=sys.stderr)

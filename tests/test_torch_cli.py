@@ -337,8 +337,9 @@ def test_profile_stages_match_the_jax_cli(inputs, capsys, source, fmt):
 @pytest.mark.parametrize("shard", [False, True])
 def test_text_layers_and_pdn_report_not_yet_ported(inputs, capsys, shard, monkeypatch):
     """Text layers and .pdn documents, once refused, now run through both
-    CLIs to the same bytes; RAW inputs and a multi-host launch
-    (PAINTFE_COORDINATOR) are still refused."""
+    CLIs to the same bytes; a malformed RAW input fails as a decode error
+    (RAW is ported) beside an input that succeeds, and a multi-host launch
+    (PAINTFE_COORDINATOR) is still refused."""
     import chip_smoke
     from paintfe_tpu.core import canvas as jcanvas
     from paintfe_tpu.io import pfe as jpfe
@@ -367,7 +368,8 @@ def test_text_layers_and_pdn_report_not_yet_ported(inputs, capsys, shard, monkey
     argv = ["-i", str(inputs / "shot.dng"), str(inputs / "in0.png"),
             "--output-dir", str(inputs / "r"), "--device", "cpu", *extra]
     assert tcli.main(argv) == 1
-    assert "RAW camera format '.dng' is not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "failed to decode DNG" in err and "not yet ported" not in err
     assert (inputs / "r" / "in0.png").exists()
     monkeypatch.setenv("PAINTFE_COORDINATOR", "localhost:1234")
     assert tcli.main(argv) == 1

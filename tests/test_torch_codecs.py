@@ -87,9 +87,18 @@ def test_cli_formats_give_the_jax_bytes(tmp_path, fmt):
 
 
 def test_raw_inputs_report_not_yet_ported(tmp_path):
+    """RAW is ported: a malformed DNG is a decode error of the RAW reader
+    and the families without a decoder keep the JAX package's message,
+    in both packages the same."""
     (tmp_path / "shot.dng").write_bytes(b"II*\0")
-    with pytest.raises(tcodecs.CodecError, match="not yet ported"):
-        tcodecs.load_image(tmp_path / "shot.dng")
+    (tmp_path / "shot.raf").write_bytes(b"FUJIFILMCCD-RAW ")
+    for name, match in (("shot.dng", "failed to decode DNG"), ("shot.raf", "raw decoder")):
+        with pytest.raises(tcodecs.CodecError, match=match) as got:
+            tcodecs.load_image(tmp_path / name, device="cpu")
+        with pytest.raises(jcodecs.CodecError) as want:
+            jcodecs.load_image(tmp_path / name)
+        assert str(got.value) == str(want.value)
+        assert "not yet ported" not in str(got.value)
 
 
 def test_undecodable_input_is_a_codec_error(tmp_path):

@@ -928,3 +928,57 @@ def test_menu_path_on_the_card_equals_the_cpu(dev, tmp_path):
     while card.history.redo(card.canvas):
         pass
     assert chip_smoke.document_differences(card.canvas, host.canvas) == []
+
+
+# -- RAW: the develop stage on the card ----------------------------------------
+
+def _raw_develop_both(dev, family, blob):
+    """A RAW file's develop stage on the card and on the CPU, and the RGBA
+    each gives after the host steps."""
+    import chip_smoke
+    from paintfe_tpu_torch.io import raw
+
+    develop = chip_smoke._raw_developers()[family]
+    got, want = develop(blob, dev), develop(blob, "cpu")
+    return got, want, raw._finish_raw(*got), raw._finish_raw(*want)
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (61, 142)])
+@pytest.mark.parametrize("name", ["strips.dng", "deflate.dng", "ljpeg.dng", "lzw.dng",
+                                  "canon.cr2", "nikon.nef", "sony.arw", "panasonic.rw2"])
+def test_raw_develop_on_the_card_equals_the_cpu(dev, tmp_path, name, shape):
+    """Every family of the smoke's RAW phase: _normalize_levels, the gains
+    and _demosaic_bilinear on the card give the CPU's linear RGB, and the
+    same RGBA."""
+    import chip_smoke
+
+    files = chip_smoke.raw_files(tmp_path, *shape)
+    (got, got_cm), (want, want_cm), rgba, want_rgba = _raw_develop_both(
+        dev, files[name][0], (tmp_path / name).read_bytes())
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.array_equal(got, want)
+    assert (got_cm is None) == (want_cm is None)
+    assert np.array_equal(rgba, want_rgba) and rgba.shape[:2] == files[name][1]
+
+
+@pytest.mark.parametrize("photometric", [1, 32803])
+def test_raw_develop_keeps_subnormals_nan_and_inf_on_the_card(dev, photometric):
+    """An fp32 DNG with subnormal, NaN and +-inf samples: the card's develop
+    stage equals the CPU's (NaN where the CPU has NaN), subnormals are not
+    flushed to zero, and the host steps give the same RGBA."""
+    import chip_smoke
+
+    h, w = 24, 34
+    vals = np.random.default_rng(8).random((h, w), dtype=np.float32)
+    vals[0, :6] = [1e-40, -1e-42, np.nan, np.inf, -np.inf, 1.2e-38]
+    vals[5, 4:12] = np.float32(2.0 ** -140)
+    blob = vals.astype("<f4").tobytes()
+    extra = {339: (3, [3]), 262: (3, [photometric])}
+    ifds = [(chip_smoke._dng_entries(h, w, (0, 1, 1, 2), extra, [0], bits=32), None)]
+    blob = chip_smoke.tiff_bytes(chip_smoke._with_counts(ifds, [blob]), [blob])
+    (got, _), (want, _), rgba, want_rgba = _raw_develop_both(dev, "dng", blob)
+    assert np.array_equal(got, want, equal_nan=True)
+    assert np.isnan(got).any() and np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(rgba, want_rgba)
+    if photometric == 1:  # the linear path keeps each sample: no flush to zero
+        assert got[0, 0, 0] == np.float32(1e-40) and got[5, 4, 0] == np.float32(2.0 ** -140)
