@@ -35,7 +35,7 @@ It builds the port's CUDA kernels from csrc/, then:
      blurring at different sigmas around a twist, 20 rounds at 1920x1080,
      each result held against the plain versions (K-blur's constant taps
      are shared by the streams);
-  3. drives eight main paths and one entry call, each with every kernel
+  3. drives nine main paths and one entry call, each with every kernel
      launch count set to 0 just before it and read just after:
      - the headline path: the serial CLI (one 3840x2160 PNG, --device
        cuda) and the --shard CLI (two 3840x2160 and two 1920x1080 PNGs,
@@ -118,6 +118,27 @@ It builds the port's CUDA kernels from csrc/, then:
        the same run's with --device cpu; exactly one K-blur an image
        serially and one K-blur, K-median and K-warp a shape bucket under
        --shard;
+     - the tools path: a six-layer 3840x2160 .pfe with a u16 deep layer
+       through Project.open, then tool_steps on the active layer: three
+       lassos (replace, add, intersect), seven brush lines of about 2,000
+       px under the selection (soft, pencil, eraser, Dodge, Burn, Sponge,
+       scatter with hue and brightness jitter), a stock-tip stroke rotated
+       30 degrees, a solid and a dashed, double-arrowed Bézier, five shapes
+       (a rounded rect, a star outline, a heart, a rotated hexagon, a
+       custom SVG shape), an ellipse on a new layer merged down on
+       K-composite, a clone and a heal stroke, PatchMatch and five
+       instant-brush dabs in a 128x128 hole, and the perspective crop;
+       each stroke drawn into the canvas preview on the card, shown
+       through the dirty-rect composite (K-composite) and committed as one
+       PixelPatch with the deep buffer synced, every document, deep
+       buffer, history entry and displayed composite held against the
+       same steps run with device="cpu" after each step; undo to the
+       start, redo to the end, flatten, Project.save to .pfe and .png
+       (bytes equal to the CPU run's); exactly one K-composite launch a
+       raster run of each display, one for the merge down, one a raster
+       run of the flatten and one for the .png save, no other kernel;
+       each step's wall time, the card's busy time, the stamps of each
+       stroke and an untraced stroke's stamps a second;
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -153,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -190,6 +212,10 @@ DOC_RESIZE = 'resize_image(1920, 1080, "lanczos3"); resize_canvas(2000, 1200, "c
 SHAPES = [(37, 53), (257, 511), UHD]
 OPACITIES = (0.0, 0.37, 1.0, 1.5)
 TIMED_RUNS = 15
+# a timed call of over LONG_CALL_MS (K-median r = 110, 2.4 s) takes
+# LONG_RUNS samples after one warm-up call
+LONG_CALL_MS = 500.0
+LONG_RUNS = 3
 # 3840x2160 PNGs of the headline and spatial paths: serial, and --shard
 # (beside two 1920x1080 ones); the effects path's (cut from 2, 4 and 3 to
 # make room for the inputs path)
@@ -1024,7 +1050,8 @@ def _check_launched(tag, counts, names):
 
 def drive_main_paths(dev, gen, tmp, card):
     """The main paths (headline, spatial, layered, effects, inputs,
-    document, menu, raw) and K-pass's entry call, each with launch counts from 0.
+    document, menu, raw, tools) and K-pass's entry call, each with launch
+    counts from 0.
     Returns each phase's launch counts, by phase."""
     import torch
 
@@ -1033,64 +1060,78 @@ def drive_main_paths(dev, gen, tmp, card):
     print("main paths (launch counts from 0 before each):")
     img = _rand(gen, UHD, dev)
     ov = _overlay(gen, UHD, dev)
-    _reset_counts()
-    _drive_cli(dev, tmp, "headline", HEADLINE, _plain_headline,
-               {"gaussian_blur_fused": 1}, 1)
-    head = fused_chain_kernel(img, ov)
-    torch.cuda.synchronize()
-    headline = _counts()
-    _check_launched("headline", headline,
-                    ("gaussian_blur_fused", "fused_chain_kernel"))
-    if not torch.equal(head, fused_chain(img, ov)):
-        raise CheckFailed("headline chain frame differs from the plain chain")
-    print("  ok  the headline frame equals the plain chain")
+    with _section("headline path"):
+        _reset_counts()
+        _drive_cli(dev, tmp, "headline", HEADLINE, _plain_headline,
+                   {"gaussian_blur_fused": 1}, 1)
+        head = fused_chain_kernel(img, ov)
+        torch.cuda.synchronize()
+        headline = _counts()
+        _check_launched("headline", headline,
+                        ("gaussian_blur_fused", "fused_chain_kernel"))
+        if not torch.equal(head, fused_chain(img, ov)):
+            raise CheckFailed("headline chain frame differs from the plain chain")
+        print("  ok  the headline frame equals the plain chain")
 
-    _reset_counts()
-    _drive_cli(dev, tmp, "spatial", SPATIAL, _plain_spatial,
-               {"gaussian_blur_fused": 1, "median_kernel": 1, "gather_bilinear_u8": 1}, 3)
-    torch.cuda.synchronize()
-    spatial = _counts()
-    _check_launched("spatial", spatial,
-                    ("gaussian_blur_fused", "median_kernel", "gather_bilinear_u8"))
+    with _section("spatial path"):
+        _reset_counts()
+        _drive_cli(dev, tmp, "spatial", SPATIAL, _plain_spatial,
+                   {"gaussian_blur_fused": 1, "median_kernel": 1, "gather_bilinear_u8": 1}, 3)
+        torch.cuda.synchronize()
+        spatial = _counts()
+        _check_launched("spatial", spatial,
+                        ("gaussian_blur_fused", "median_kernel", "gather_bilinear_u8"))
 
-    _reset_counts()
-    layered = drive_layered_path(dev, tmp)
+    with _section("layered path"):
+        _reset_counts()
+        layered = drive_layered_path(dev, tmp)
 
-    _reset_counts()
-    _drive_cli(dev, tmp, "effects", EFFECTS, _plain_effects,
-               {"gaussian_blur_fused": 2, "gather_bilinear_u8": 1}, 7,
-               EFFECTS_SERIAL_UHD, EFFECTS_SHARD_UHD)
-    drive_resized_document(dev, tmp)
-    torch.cuda.synchronize()
-    effects = _counts()
-    _check_launched("effects", effects, ("gaussian_blur_fused", "gather_bilinear_u8",
-                                         "composite_stack_kernel"))
+    with _section("effects path"):
+        _reset_counts()
+        _drive_cli(dev, tmp, "effects", EFFECTS, _plain_effects,
+                   {"gaussian_blur_fused": 2, "gather_bilinear_u8": 1}, 7,
+                   EFFECTS_SERIAL_UHD, EFFECTS_SHARD_UHD)
+        drive_resized_document(dev, tmp)
+        torch.cuda.synchronize()
+        effects = _counts()
+        _check_launched("effects", effects, ("gaussian_blur_fused", "gather_bilinear_u8",
+                                             "composite_stack_kernel"))
 
-    _reset_counts()
-    drive_inputs_path(dev, tmp)
-    torch.cuda.synchronize()
-    inputs = _counts()
-    _check_launched("inputs", inputs, ("gaussian_blur_fused", "composite_stack_kernel"))
+    with _section("inputs path"):
+        _reset_counts()
+        drive_inputs_path(dev, tmp)
+        torch.cuda.synchronize()
+        inputs = _counts()
+        _check_launched("inputs", inputs, ("gaussian_blur_fused", "composite_stack_kernel"))
 
-    _reset_counts()
-    document = drive_document_path(dev, tmp, card)
-    _check_launched("document", document, ("gather_bilinear_u8", "composite_stack_kernel"))
+    with _section("document path"):
+        _reset_counts()
+        document = drive_document_path(dev, tmp, card)
+        _check_launched("document", document, ("gather_bilinear_u8", "composite_stack_kernel"))
 
-    _reset_counts()
-    menu = drive_menu_path(dev, tmp, card)
-    _check_launched("menu", menu, ("gather_bilinear_u8", "gaussian_blur_fused",
-                                   "composite_stack_kernel"))
+    with _section("menu path"):
+        _reset_counts()
+        menu = drive_menu_path(dev, tmp, card)
+        _check_launched("menu", menu, ("gather_bilinear_u8", "gaussian_blur_fused",
+                                       "composite_stack_kernel"))
 
-    _reset_counts()
-    drive_raw_path(dev, tmp, card)
-    torch.cuda.synchronize()
-    raw = _counts()
-    _check_launched("raw", raw, ("gaussian_blur_fused", "median_kernel", "gather_bilinear_u8"))
+    with _section("raw path"):
+        _reset_counts()
+        drive_raw_path(dev, tmp, card)
+        torch.cuda.synchronize()
+        raw = _counts()
+        _check_launched("raw", raw, ("gaussian_blur_fused", "median_kernel",
+                                     "gather_bilinear_u8"))
+
+    with _section("tools path"):
+        _reset_counts()
+        tools = drive_tools_path(dev, tmp, card)
+        _check_launched("tools", tools, ("composite_stack_kernel",))
 
     entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
     return {"headline": headline, "spatial": spatial, "layered": layered,
             "effects": effects, "inputs": inputs, "document": document, "menu": menu,
-            "raw": raw, "gaussian_blur_pallas entry call": entry}
+            "raw": raw, "tools": tools, "gaussian_blur_pallas entry call": entry}
 
 
 def drive_blur_pass_entry(dev, png):
@@ -1544,6 +1585,17 @@ def document_steps(m, kw):
     ]
 
 
+# wall seconds of each section of the smoke (_section), printed at its end
+SECTION_S = {}
+
+
+@contextlib.contextmanager
+def _section(name):
+    t0 = time.perf_counter()
+    yield
+    SECTION_S[name] = time.perf_counter() - t0
+
+
 def document_differences(a, b):
     """What differs between two documents of the port (an empty list when
     they are the same): dims, active layer, selection, folders, and each
@@ -1595,10 +1647,11 @@ def _raster_runs(doc):
     return runs + -(-n // 32)
 
 
-def _timed_stage(fn, busy_ms, tag=None):
+def _timed_stage(fn, busy_ms, tag=None, device_ops=None):
     """fn's result and its wall ms, ending in a device synchronise; with a
     tag, the device's busy ms in that window (a torch.profiler trace of the
-    card) go to busy_ms[tag]."""
+    card) go to busy_ms[tag], and the number of kernels, copies and fills
+    the trace holds to device_ops[tag] where device_ops is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1609,7 +1662,10 @@ def _timed_stage(fn, busy_ms, tag=None):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
     if tag:
-        busy_ms[tag] = _device_us(prof)[0] / 1e3
+        busy, _, ops = _device_us(prof)
+        busy_ms[tag] = busy / 1e3
+        if device_ops is not None:
+            device_ops[tag] = ops
     return out, ms
 
 
@@ -2166,6 +2222,644 @@ def drive_menu_path(dev, tmp, card):
           f"{sum(stage_ms.values()) / 1e3:.1f} s of stages in all, host fields "
           f"{(dents_field_ms + contours_field_ms) / 1e3:.1f} s [card: {card}]")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The tools path: the painting and vector tools a scripting user of Project
+# paints with (lasso, brush, pencil, eraser, dodge/burn/sponge, image tips,
+# Bézier strokes, shapes, clone and heal, PatchMatch and the instant brush,
+# the perspective crop), each stroke drawn into the canvas preview, shown
+# through the dirty-rect composite and committed as one history command
+# (tests/test_torch_tools_path.py runs the same steps against the JAX
+# package on the CPU)
+# ---------------------------------------------------------------------------
+
+# polygons in fractions of (width, height)
+TOOL_LASSOS = (
+    ("lasso replace", "REPLACE", ((0.05, 0.15), (0.55, 0.05), (0.70, 0.45), (0.40, 0.90),
+                                  (0.08, 0.75))),
+    ("lasso add", "ADD", ((0.45, 0.20), (0.95, 0.15), (0.90, 0.85), (0.50, 0.70))),
+    ("lasso intersect", "INTERSECT", ((0.02, 0.10), (0.98, 0.08), (0.96, 0.92),
+                                      (0.50, 0.55), (0.03, 0.95))),
+)
+# (name, size and hardness at 3840x2160, anti-aliased, mode, extra
+# properties, eraser, line start and end in fractions of (width, height)):
+# lines about 2,000 px long at 3840x2160
+TOOL_BRUSHES = (
+    ("soft brush", 48.0, 0.2, True, "NORMAL", {}, False, (0.10, 0.30), (0.60, 0.45)),
+    ("pencil", 8.0, 1.0, False, "NORMAL", {}, False, (0.15, 0.70), (0.65, 0.55)),
+    ("eraser", 36.0, 0.6, True, "NORMAL", {}, True, (0.20, 0.40), (0.70, 0.60)),
+    ("dodge", 60.0, 0.5, True, "DODGE", {}, False, (0.05, 0.50), (0.55, 0.35)),
+    ("burn", 44.0, 0.8, True, "BURN", {}, False, (0.30, 0.20), (0.80, 0.35)),
+    ("sponge", 52.0, 0.4, True, "SPONGE", {}, False, (0.25, 0.80), (0.75, 0.65)),
+    ("scatter jitter", 24.0, 0.7, True, "NORMAL",
+     {"scatter": 0.6, "hue_jitter": 0.5, "brightness_jitter": 0.4}, False,
+     (0.35, 0.25), (0.85, 0.50)),
+)
+TOOL_TIP = ("Chalk", 64.0, 0.8, 30.0, 0.3, (0.12, 0.60), (0.62, 0.75))
+TOOL_BEZIERS = (
+    ("bezier solid", 10.0, "solid", "round", "none",
+     ((0.10, 0.90), (0.30, 0.50), (0.60, 1.10), (0.90, 0.70))),
+    ("bezier dashed arrows", 8.0, "dashed", "flat", "both",
+     ((0.15, 0.15), (0.35, 0.45), (0.55, -0.10), (0.85, 0.30))),
+)
+# a custom shape of every command kind: cubic, smooth cubic, quadratic,
+# smooth quadratic, an arc, relative moves and lines, two subpaths
+TOOL_SVG = ('<svg viewBox="0 0 100 100"><path d="M10 10 C 20 0, 40 0, 50 10 '
+            'S 80 20, 60 40 Q 50 60 30 50 T 10 40 A 12 8 30 1 0 10 10 Z '
+            'm 5 5 h 10 v 10 l -10 0 z"/></svg>')
+# (name, kind, fill mode, centre in fractions, half extents, rotation,
+# outline width, corner radius; lengths at 3840x2160)
+TOOL_SHAPES = (
+    ("rounded rect", "ROUNDED_RECT", "FILLED", (0.30, 0.30), (300.0, 180.0), 0.0, 4.0, 40.0),
+    ("star outline", "STAR5", "OUTLINE", (0.70, 0.35), (200.0, 200.0), 0.0, 6.0, 0.0),
+    ("heart both", "HEART", "BOTH", (0.50, 0.60), (220.0, 200.0), 0.0, 8.0, 0.0),
+    ("hexagon rotated", "HEXAGON", "FILLED", (0.20, 0.70), (160.0, 120.0), 0.6, 3.0, 0.0),
+    ("custom shape", "RECTANGLE", "BOTH", (0.80, 0.70), (150.0, 150.0), 0.3, 5.0, 0.0),
+)
+TOOL_LAYER_SHAPE = ("ellipse on new layer", "ELLIPSE", "BOTH", (0.55, 0.45), (260.0, 170.0),
+                    0.0, 10.0, 0.0)
+TOOL_CLONE = (40.0, 0.5, (0.55, 0.20), (0.80, 0.50), (-0.10, 0.05))
+TOOL_HEAL = (32.0, 0.6, (0.30, 0.50), (0.45, 0.62), 12.0)
+TOOL_HOLE = ((0.62, 0.42), 128)  # centre in fractions, side in px at 3840x2160
+TOOL_CROP = ((0.04, 0.06), (0.97, 0.02), (0.93, 0.95), (0.02, 0.90))
+# the steps that change no pixels, and those that push a full-document snapshot
+TOOL_SELECTS = tuple(name for name, *_ in TOOL_LASSOS) + ("select hole",)
+
+
+def tool_modules(dev):
+    """The port's modules of the tools path, by the names tool_steps reads,
+    and its surface on `dev`: target (an array as a new tensor there),
+    zeros (a blank u8 preview there), host (a tensor as a numpy array) and
+    show (the dirty-rect composite on a DeviceLayerCache, K-composite on the
+    card, counting its raster runs in state["composites"]).  The JAX
+    package's modules carry the same names; its surface is numpy."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from paintfe_tpu_torch.core import history, selection
+    from paintfe_tpu_torch.core.device import (DeviceLayerCache, composite_device,
+                                               composite_dirty_rect)
+    from paintfe_tpu_torch.ops import canvas_ops, inpaint, shapes
+    from paintfe_tpu_torch.tools import brush, brush_tips, clone_heal, vector_tools
+
+    def target(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, copy=True)
+
+    def zeros(h, w):
+        return torch.zeros((h, w, 4), dtype=torch.uint8, device=dev)
+
+    def show(c, rect, state):
+        """The display after an edit: the dirty rect (x0, y0, x1, y1
+        inclusive) spliced into the resident composite, or, for rect None,
+        the whole composite anew."""
+        if rect is None or "shown" not in state:
+            state["cache"] = state.get("cache") or DeviceLayerCache(dev)
+            state["shown"] = composite_device(c, state["cache"])
+        else:
+            composite_dirty_rect(c, state["cache"], state["shown"], rect)
+        state["composites"] = state.get("composites", 0) + _raster_runs(c)
+
+    return types.SimpleNamespace(
+        brush=brush, brush_tips=brush_tips, clone_heal=clone_heal,
+        vector_tools=vector_tools, shapes=shapes, inpaint=inpaint, selection=selection,
+        history=history, canvas_ops=canvas_ops, target=target, zeros=zeros,
+        host=lambda x: x.cpu().numpy(), show=show)
+
+
+def tools_document(rng, h, w):
+    """editing_document with a u16 deep-pixel buffer on the active layer
+    (layer 2), which every commit to it keeps in sync."""
+    from paintfe_tpu_torch.core.deep import DeepRgbaBuffer, PixelFormat
+
+    doc = editing_document(rng, h, w)
+    layer = doc.layers[doc.active_layer_index]
+    layer.pixel_format = PixelFormat.RGBA_U16
+    layer.deep_pixels = DeepRgbaBuffer.from_rgba8(layer.pixels, PixelFormat.RGBA_U16)
+    return doc
+
+
+def tool_steps(m, kw):
+    """The edits of the tools path, in order, as (name, fn(project, state)
+    -> stamps); `state` is a dict a run keeps (the displayed composite).
+    Each stroke draws into canvas.preview (a blank one, or for Dodge, Burn
+    and Sponge the layer itself with preview_replaces_layer), is shown
+    through m.show over its dirty rect, and is committed with the canvas's
+    _apply_preview over that rect as one PixelPatch; a commit to the layer
+    with deep pixels syncs them over the rect.  Selections and the crop are
+    SnapshotCommands, fills SingleLayerSnapshotCommands, the new layer a
+    LayerOpCommand.  Lengths are given at 3840x2160 and scale with the
+    canvas.  `m` holds the modules and the surface (tool_modules(dev), or
+    the JAX package's by the same names); `kw` is passed to every call that
+    does device work: {"device": dev} for the port, {} for the JAX
+    package."""
+    import math
+
+    import numpy as np
+
+    hist, sh = m.history, m.shapes
+
+    def unit(c):
+        return min(c.width / 3840.0, c.height / 2160.0)
+
+    def at(c, f):
+        return (f[0] * c.width, f[1] * c.height)
+
+    def clamp(c, rect):
+        x0, y0, x1, y1 = rect
+        return (max(int(math.floor(x0)), 0), max(int(math.floor(y0)), 0),
+                min(int(math.ceil(x1)), c.width - 1), min(int(math.ceil(y1)), c.height - 1))
+
+    def around(c, points, margin):
+        xs = [p[0] for p in points]
+        ys = [p[1] for p in points]
+        return clamp(c, (min(xs) - margin, min(ys) - margin, max(xs) + margin,
+                         max(ys) + margin))
+
+    def commit(p, state, name, rect):
+        """The preview's rect onto the active layer, one PixelPatch."""
+        c = p.canvas
+        idx = c.active_layer_index
+        layer = c.layers[idx]
+        before = layer.pixels
+        x0, y0, x1, y1 = rect
+        full = m.target(before)
+        win = (slice(y0, y1 + 1), slice(x0, x1 + 1))
+        full[win] = c._apply_preview(full[win], c.preview[win])
+        after = np.ascontiguousarray(m.host(full))
+        c.preview = None
+        c.preview_is_eraser = c.preview_replaces_layer = False
+        layer.pixels = after
+        if layer.deep_pixels is not None:
+            layer.deep_pixels.sync_region_from_u8(full, x0, y0, x1 + 1, y1 + 1)
+        p.history.push(hist.PixelPatch(name, idx, before, after))
+
+    def stroke(name, draw, eraser=False, replaces=False):
+        """draw(canvas, preview) -> (dirty rect, stamps)"""
+        def step(p, state):
+            c = p.canvas
+            layer = c.layers[c.active_layer_index]
+            c.preview = m.target(layer.pixels) if replaces else m.zeros(c.height, c.width)
+            c.preview_is_eraser, c.preview_replaces_layer = eraser, replaces
+            rect, stamps = draw(c, c.preview)
+            m.show(c, rect, state)
+            commit(p, state, name, rect)
+            return stamps
+        return name, step
+
+    def snapshot(name, edit, rect=None):
+        """edit(canvas) under one SnapshotCommand; rect(canvas) is what to
+        show after it (None: nothing, "all": the whole composite)"""
+        def step(p, state):
+            c = p.canvas
+            cmd = hist.SnapshotCommand(name, c)
+            edit(c)
+            cmd.finalize(c)
+            p.history.push(cmd)
+            if rect is not None:
+                m.show(c, None if rect == "all" else rect(c), state)
+            return 0
+        return name, step
+
+    def lasso(name, mode, poly):
+        return snapshot(name, lambda c: m.vector_tools.apply_lasso_selection(
+            c, [at(c, f) for f in poly], m.selection.SelectionMode[mode]))
+
+    def brush_line(name, size, hardness, aa, mode, props, eraser, a, b):
+        def draw(c, preview):
+            s = max(size * unit(c), 2.0)
+            br = m.brush.Brush(s, hardness, aa, brush_mode=m.brush.BrushMode[mode])
+            for key, value in props.items():
+                setattr(br.properties, key, value)
+            start, end = at(c, a), at(c, b)
+            br.draw_line(preview, start, end, is_eraser=eraser,
+                         primary=(0.85, 0.35, 0.2, 0.9), mask=c.selection)
+            margin = s * (0.5 + props.get("scatter", 0.0)) + 2.0
+            return around(c, (start, end), margin), br.stamp_counter
+        return stroke(name, draw, eraser=eraser, replaces=mode != "NORMAL")
+
+    def image_tip(c, preview):
+        name, size, hardness, rotation, scatter, a, b = TOOL_TIP
+        s = max(size * unit(c), 5.0)
+        tip = m.brush_tips.stock_library().get(name)
+        mask = m.target(m.brush_tips.rebuild_tip_mask(tip, s, hardness))
+        start, end = at(c, a), at(c, b)
+        step = max(s * 0.25, 1.0)
+        n = int(math.hypot(end[0] - start[0], end[1] - start[1]) // step) + 1
+        for k in range(n):
+            t = k / max(n - 1, 1)
+            pos = (start[0] + (end[0] - start[0]) * t, start[1] + (end[1] - start[1]) * t)
+            rgb = m.brush_tips.jitter_color((200, 60, 40), 0.4, 0.2, pos, k)
+            m.brush_tips.draw_image_tip(preview, pos, mask, rgb + (230,), flow=0.9,
+                                        rotation_deg=rotation, scatter=scatter,
+                                        stamp_counter=k, brush_size=s,
+                                        selection=c.selection)
+        margin = mask.shape[0] * 0.75 + scatter * s + 2.0
+        return around(c, (start, end), margin), n
+
+    def bezier(name, size, pattern, cap, arrows, cps):
+        def draw(c, preview):
+            s = max(size * unit(c), 2.0)
+            points = [at(c, f) for f in cps]
+            m.vector_tools.rasterize_bezier(preview, points, (30, 90, 220, 240), s,
+                                            pattern=pattern, cap_style=cap,
+                                            selection=c.selection, arrow_side=arrows)
+            # the curve's samples, as rasterize_bezier steps them
+            length = math.dist(points[0], points[3]) + sum(
+                math.dist(a, b) for a, b in zip(points, points[1:]))
+            samples = int(np.clip(np.ceil(length / max(s * 0.1, 0.5)), 20, 5000)) + 1
+            return around(c, points, 6.0 * s + 16.0), samples
+        return stroke(name, draw)
+
+    def placed(c, kind, fill, centre, half, rotation, outline, corner, custom=None):
+        u = unit(c)
+        cx, cy = at(c, centre)
+        return sh.PlacedShape(
+            cx, cy, max(half[0] * u, 3.0), max(half[1] * u, 3.0), rotation,
+            sh.ShapeKind[kind], sh.ShapeFillMode[fill], max(outline * u, 1.0),
+            (230, 70, 40, 255), (40, 120, 220, 200), True, corner * u, custom)
+
+    def shape(name, *spec):
+        def draw(c, preview):
+            custom = (sh.parse_custom_shape("custom", "tools",
+                                            sh.extract_svg_path_data(TOOL_SVG))
+                      if name == "custom shape" else None)
+            buf, ox, oy = sh.rasterize_shape(placed(c, *spec, custom), c.width, c.height,
+                                             **kw)
+            bh, bw = buf.shape[:2]
+            preview[oy:oy + bh, ox:ox + bw] = buf
+            return clamp(c, (ox, oy, ox + bw - 1, oy + bh - 1)), 1
+        return stroke(name, draw)
+
+    def new_layer(p, state):
+        c = p.canvas
+        prev = c.active_layer_index
+        idx = m.canvas_ops.add_layer(c, "shapes")
+        p.history.push(hist.LayerOpCommand("new layer", "add", idx, c.layers[idx], prev, idx))
+        return 0
+
+    def merge(c):
+        m.canvas_ops.merge_down(c, c.active_layer_index, **kw)
+        layer = c.layers[c.active_layer_index]
+        if layer.deep_pixels is not None:
+            layer.deep_pixels.sync_region_from_u8(m.target(layer.pixels), 0, 0,
+                                                  c.width, c.height)
+
+    def clone(c, preview):
+        size, hardness, a, b, offset = TOOL_CLONE
+        br = m.brush.Brush(max(size * unit(c), 3.0), hardness)
+        start, end = at(c, a), at(c, b)
+        source = m.target(c.layers[c.active_layer_index].pixels)
+        m.clone_heal.clone_stamp_line(br, preview, source, start, end, at(c, offset),
+                                      c.selection)
+        return (around(c, (start, end), br.properties.size / 2.0 + 2.0),
+                len(m.clone_heal._line_points(start, end, c.width, c.height)))
+
+    def heal(c, preview):
+        size, hardness, a, b, radius = TOOL_HEAL
+        br = m.brush.Brush(max(size * unit(c), 3.0), hardness)
+        start, end = at(c, a), at(c, b)
+        source = m.target(c.layers[c.active_layer_index].pixels)
+        m.clone_heal.heal_line(br, preview, source, start, end,
+                               max(radius * unit(c), 2.0), c.selection)
+        return (around(c, (start, end), br.properties.size / 2.0 + 2.0),
+                len(m.clone_heal._line_points(start, end, c.width, c.height)))
+
+    def hole(c):
+        (fx, fy), side = TOOL_HOLE
+        side = max(int(side * unit(c)), 8)
+        x0, y0 = int(fx * c.width) - side // 2, int(fy * c.height) - side // 2
+        return x0, y0, x0 + side - 1, y0 + side - 1
+
+    def fill(name, fn):
+        """fn(canvas, pixels) -> the active layer's new pixels over the hole,
+        one SingleLayerSnapshotCommand"""
+        def step(p, state):
+            c = p.canvas
+            idx = c.active_layer_index
+            layer = c.layers[idx]
+            before = layer.pixels
+            after = np.ascontiguousarray(fn(c, before), np.uint8)
+            layer.pixels = after
+            x0, y0, x1, y1 = hole(c)
+            if layer.deep_pixels is not None:
+                layer.deep_pixels.sync_region_from_u8(after, x0, y0, x1 + 1, y1 + 1)
+            p.history.push(hist.SingleLayerSnapshotCommand(name, idx, before, after))
+            m.show(c, hole(c), state)
+            return 1
+        return name, step
+
+    def patchmatch(c, px):
+        q = m.inpaint.ContentAwareQuality.BALANCED
+        return m.inpaint.fill_region_patchmatch(px, c.selection, q.patch_size,
+                                                q.patchmatch_iters)
+
+    def instant(c, px):
+        x0, y0, x1, y1 = hole(c)
+        side = x1 - x0 + 1
+        out = px.copy()
+        for fx, fy in ((0.5, 0.5), (0.2, 0.2), (0.8, 0.2), (0.2, 0.8), (0.8, 0.8)):
+            out = m.inpaint.inpaint_instant_brush(px, c.selection, out, x0 + fx * side,
+                                                  y0 + fy * side, side * 0.3, side * 0.5,
+                                                  0.5)
+        return out
+
+    steps = [lasso(*spec) for spec in TOOL_LASSOS]
+    steps += [brush_line(*spec) for spec in TOOL_BRUSHES]
+    steps += [stroke("image tip", image_tip)]
+    steps += [bezier(*spec) for spec in TOOL_BEZIERS]
+    steps += [shape(*spec) for spec in TOOL_SHAPES]
+    steps += [("new layer", new_layer), shape(*TOOL_LAYER_SHAPE),
+              snapshot("merge down", merge, "all"),
+              stroke("clone", clone), stroke("heal", heal),
+              snapshot("select hole", lambda c: setattr(c, "selection", m.selection.rect_mask(
+                  c.width, c.height, *hole(c)))),
+              fill("patchmatch", patchmatch), fill("instant brush", instant),
+              snapshot("perspective crop", lambda c: m.vector_tools.apply_perspective_crop(
+                  c, [at(c, f) for f in TOOL_CROP], **kw), "all")]
+    return steps
+
+
+def _tools_parts(p, state, stamps, cache):
+    """What the tools path holds equal between the card and the CPU after a
+    step, as {part: value}: the canvas's size, active layer, folders and
+    selection, each layer's state with a BLAKE2b digest of its pixels, mask
+    and deep buffer, the history's entries, the displayed composite's
+    digest and the step's stamps.  `cache` keeps each host array's digest
+    by identity (an array a step does not replace is hashed once; every
+    edit assigns new arrays).  It reads only what the JAX package's
+    documents hold too, so the tests compare the two packages with it."""
+    import hashlib
+    import weakref
+
+    import numpy as np
+
+    def digest(a):
+        if a is None:
+            return None
+        if not isinstance(a, np.ndarray):  # a tensor on any device, or a JAX array
+            a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+        hit = cache.get(id(a))
+        if hit is not None and hit[0]() is a:
+            return hit[1]
+        d = hashlib.blake2b(np.ascontiguousarray(a), digest_size=16).hexdigest()
+        d = f"{a.dtype}{list(a.shape)}:{d}"
+        cache[id(a)] = (weakref.ref(a), d)
+        return d
+
+    c = p.canvas
+    parts = {"canvas": [c.width, c.height, c.active_layer_index],
+             "folders": [[f.id, f.name, f.visible] for f in c.folders],
+             "selection": digest(c.selection),
+             "history": [type(cmd).__name__ + ":" + cmd.name for cmd in p.history.undo_stack],
+             "stamps": stamps}
+    for k, layer in enumerate(c.layers):
+        deep = layer.deep_pixels
+        parts[f"layer {k}"] = [
+            layer.name, layer.visible, float(layer.opacity), int(layer.blend_mode),
+            layer.mask_enabled, layer.folder_id, layer.content, digest(layer.pixels),
+            digest(layer.mask),
+            None if deep is None else [getattr(deep.format, "value", deep.format),
+                                       digest(deep.data)]]
+    if "shown" in state:
+        parts["displayed composite"] = digest(state["shown"])
+    return parts
+
+
+def tool_stages(proj, state, dev, out):
+    """The tools path's stages on `proj`, as (name, fn): the steps of
+    tool_steps on `dev`, undo to the start, redo to the end, the flatten and
+    Project.save to out.pfe and out.png (`out` a path without a suffix).
+    A step's fn returns its stamps, undo's and redo's the commands they
+    moved.  Both routes of drive_tools_path run these."""
+    import torch
+
+    from paintfe_tpu_torch.ops import canvas_ops
+
+    def unwind(move):
+        return sum(1 for _ in iter(lambda: move(proj.canvas), False))
+
+    steps = tool_steps(tool_modules(torch.device(dev)), {"device": dev})
+    return ([(name, lambda step=step: step(proj, state)) for name, step in steps]
+            + [("undo to the start", lambda: unwind(proj.history.undo)),
+               ("redo to the end", lambda: unwind(proj.history.redo)),
+               ("flatten", lambda: canvas_ops.flatten(proj.canvas, device=dev)),
+               ("save .pfe", lambda: proj.save(out.with_suffix(".pfe"))),
+               ("save .png", lambda: proj.save(out.with_suffix(".png")))])
+
+
+def _tools_cpu_route(src, root):
+    """The tools path's stages with device="cpu", in a process of its own
+    beside the card's: writes root/cpu_route.json (each stage's name, wall
+    ms and parts, as _tools_parts gives them), cpu.pfe and cpu.png."""
+    import torch
+
+    from paintfe_tpu_torch.core.history import HistoryManager
+    from paintfe_tpu_torch.core.project import Project
+
+    # half the host's cores: the card's route runs beside this one
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    root = pathlib.Path(root)
+    proj = Project.open(src, device="cpu")
+    proj.history = HistoryManager(max_entries=100, memory_limit_bytes=64 << 30)
+    state, cache, stages = {}, {}, []
+    for name, fn in tool_stages(proj, state, "cpu", root / "cpu"):
+        t0 = time.perf_counter()
+        n = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        stages.append([name, ms, _tools_parts(proj, state, n, cache)])
+    (root / "cpu_route.json").write_text(json.dumps(stages))
+
+
+def drive_tools_path(dev, tmp, card):
+    """The tools path at 3840x2160 on a six-layer document with a u16 deep
+    layer (tools_document): Project.open of a .pfe, then the steps of
+    tool_steps on the card (three lassos, seven brush lines of about 2,000
+    px: soft, pencil, eraser, Dodge, Burn, Sponge, scatter with colour
+    jitter; an image-tip stroke of a stock tip rotated 30 degrees; two
+    Bézier strokes; five shapes; a shape on a new layer merged down; a
+    clone and a heal stroke; PatchMatch and instant-brush dabs in a hole of
+    128x128; the perspective crop), each stroke shown through the
+    dirty-rect composite on K-composite and committed as one history
+    command; undo to the start (equal to the opened document) and redo to
+    the end; flatten and Project.save to .pfe and .png.  The same steps
+    run with device="cpu" in a process of its own meanwhile
+    (_tools_cpu_route): after every step every layer, mask, deep buffer,
+    the selection, the history's entries, the displayed composite and the
+    stamps must be the CPU's (BLAKE2b digests of the bytes, _tools_parts),
+    and the saved files the CPU's byte for byte.  K-composite launches
+    once a raster run of each display, once for the merge down, once a
+    raster run of the flatten and once for the .png save; no other kernel.
+    Prints each step's wall ms (traced) beside the CPU's, the card's busy
+    ms and device operations, each stroke's stamps and operations a stamp,
+    what the traces and digests cost, and a soft line's stamps a second
+    untraced with its operations a stamp traced.  Returns the launch
+    counts of the path."""
+    import multiprocessing
+
+    import numpy as np
+
+    from paintfe_tpu_torch.io.pfe import save_pfe
+
+    h, w = UHD
+    root = tmp / "tools"
+    root.mkdir(parents=True)
+    src = root / "doc.pfe"
+    save_pfe(tools_document(np.random.default_rng(13), h, w), str(src))
+    started = time.perf_counter()
+    cpu_route = multiprocessing.get_context("spawn").Process(
+        target=_tools_cpu_route, args=(str(src), str(root)), daemon=True)
+    cpu_route.start()
+    try:
+        (counts, stages, stage_ms, busy_ms, device_ops, overhead,
+         line) = _tools_card_route(dev, src, root)
+        cpu_route.join(timeout=900)
+        if cpu_route.exitcode != 0:
+            raise CheckFailed(f"tools path: the CPU route exited with {cpu_route.exitcode}")
+    finally:
+        if cpu_route.is_alive():
+            cpu_route.kill()
+            cpu_route.join()
+    phase_s = time.perf_counter() - started
+
+    cpu_stages = json.loads((root / "cpu_route.json").read_text())
+    if [name for name, *_ in stages] != [name for name, *_ in cpu_stages]:
+        raise CheckFailed("tools path: the CPU route ran other stages")
+    cpu_ms = {}
+    for (name, ms, parts), (_, c_ms, cpu_parts) in zip(stages, cpu_stages):
+        parts = json.loads(json.dumps(parts))
+        diff = sorted(k for k in set(parts) | set(cpu_parts) if parts.get(k) != cpu_parts.get(k))
+        if diff:
+            raise CheckFailed(f"tools path, {name}: the card's document differs from the "
+                              f"CPU route's: {diff}")
+        cpu_ms[name] = c_ms
+    for a, b in (("out.pfe", "cpu.pfe"), ("out.png", "cpu.png")):
+        if (root / a).read_bytes() != (root / b).read_bytes():
+            raise CheckFailed(f"tools path: {a} differs from the CPU route's {b}")
+    print(f"  ok  tools: {len(stages) - 5} steps, undo to the start and redo to the end, "
+          "the flatten and both saves: every layer, mask, deep buffer, the selection, "
+          "history and the displayed composite equal the CPU route's after each; out.pfe "
+          "and out.png equal its files")
+
+    stamps = {name: parts["stamps"] for name, _, parts in stages
+              if isinstance(parts["stamps"], int) and parts["stamps"] > 1
+              and name not in ("undo to the start", "redo to the end")}
+    print(f"  tools stages at {w}x{h}, wall ms with the stage traced (device busy ms and "
+          f"device operations: kernels, copies, fills, from a torch.profiler trace of the "
+          f"stage; a stroke's stamps, its operations a stamp and its traced wall us an "
+          f"operation), the CPU route's ms beside [card: {card}]:")
+    for name, ms in stage_ms.items():
+        busy = (f" (device busy {busy_ms[name]:.3f}, {device_ops[name]} operations)"
+                if name in busy_ms else "")
+        rate = (f", {stamps[name]} stamps, {stamps[name] / ms * 1e3:.0f} stamps/s traced, "
+                f"{device_ops[name] / stamps[name]:.1f} operations a stamp, "
+                f"{ms * 1e3 / device_ops[name]:.1f} us an operation"
+                if name in stamps and device_ops.get(name) else "")
+        cpu = f"; CPU {cpu_ms[name]:.1f}" if name in cpu_ms else ""
+        print(f"    {name}: {ms:.1f}{busy}{rate}{cpu}")
+    wall = sum(stage_ms[name] for name in busy_ms)
+    n, line_s, line_ops = line
+    print(f"  tools: the card was busy {sum(busy_ms.values()):.1f} ms of the {wall:.1f} ms "
+          f"the traced stages took ({sum(busy_ms.values()) / wall * 100:.2f}%), "
+          f"{sum(stage_ms.values()) / 1e3:.1f} s of stages in all (the CPU route "
+          f"{sum(cpu_ms.values()) / 1e3:.1f} s beside them); the traces' stop and read "
+          f"{overhead['traces']:.1f} s, the digests {overhead['digests']:.1f} s; PatchMatch "
+          f"{stage_ms['patchmatch']:.1f} ms, perspective crop "
+          f"{stage_ms['perspective crop']:.1f} ms; one soft brush line untraced: "
+          f"{n} stamps in {line_s * 1e3:.1f} ms ({n / line_s:.0f} stamps/s), traced "
+          f"again: {line_ops} device operations ({line_ops / n:.1f} a stamp, "
+          f"{line_s * 1e6 / line_ops:.1f} us an operation untraced); the phase "
+          f"{phase_s:.1f} s [card: {card}]")
+    return counts
+
+
+# the tools path's stages that the card's route times without a trace
+TOOL_UNTRACED = ("undo to the start", "redo to the end", "save .pfe")
+
+
+def _tools_card_route(dev, src, root):
+    """The tools path's stages on the card (drive_tools_path): returns the
+    launch counts; each stage's [name, wall ms, parts]; the wall ms, busy
+    ms and device operations (kernels, copies, fills) by stage; the
+    seconds the traces' stop and read and the digests took; and a soft
+    brush line's stamps, untraced seconds and device operations traced."""
+    import torch
+
+    from paintfe_tpu_torch.core.history import HistoryManager
+    from paintfe_tpu_torch.core.project import Project
+    from paintfe_tpu_torch.io.pfe import load_pfe
+    from paintfe_tpu_torch.tools import Brush
+
+    h, w = UHD
+    busy_ms, device_ops, state, cache, stages = {}, {}, {}, {}, []
+    _reset_counts()
+    proj, open_ms = _timed_stage(lambda: Project.open(src, device=dev), busy_ms)
+    proj.history = HistoryManager(max_entries=100, memory_limit_bytes=64 << 30)
+    stage_ms = {"open": open_ms}
+    overhead = {"traces": 0.0, "digests": 0.0}
+    for name, fn in tool_stages(proj, state, dev, root / "out"):
+        if name == "undo to the start":
+            torch.cuda.synchronize()
+            edited = _counts()
+            pushed = len(proj.history.undo_stack)
+            if pushed != len(stages):
+                raise CheckFailed(f"tools path: {pushed} commands in the history after "
+                                  f"{len(stages)} steps")
+        elif name == "flatten":
+            runs = _raster_runs(proj.canvas)
+        t0 = time.perf_counter()
+        n, ms = _timed_stage(fn, busy_ms, None if name in TOOL_UNTRACED else name,
+                             device_ops)
+        t1 = time.perf_counter()
+        stage_ms[name] = ms
+        stages.append([name, ms, _tools_parts(proj, state, n, cache)])
+        overhead["traces"] += t1 - t0 - ms / 1e3
+        overhead["digests"] += time.perf_counter() - t1
+        if name == "undo to the start":
+            diff = document_differences(proj.canvas, load_pfe(str(src)))
+            if diff:
+                raise CheckFailed("tools path: undo to the start differs from the opened "
+                                  f"document: {diff}")
+    torch.cuda.synchronize()
+    counts = _counts()
+    moved = {name: parts["stamps"] for name, _, parts in stages}
+    if moved["undo to the start"] != pushed or moved["redo to the end"] != pushed:
+        raise CheckFailed(f"tools path: {moved['undo to the start']} undos and "
+                          f"{moved['redo to the end']} redos of {pushed}")
+    if document_differences(load_pfe(str(root / "out.pfe")), proj.canvas):
+        raise CheckFailed("tools path: the saved .pfe reopens to another document")
+
+    want = {name: 0 for name in counts}
+    want["composite_stack_kernel"] = state["composites"] + 1 + runs + 1
+    print(f"  tools: {pushed} steps, {pushed} commands in the history "
+          f"({proj.history.memory_bytes() / 2**30:.2f} GiB); launches: edits {edited}, "
+          f"the whole path {counts} (expected {want}: {state['composites']} raster runs "
+          f"over the displays, one for the merge down, {runs} in the flatten, one for "
+          "the .png save)")
+    if counts != want:
+        raise CheckFailed(f"tools path: launches {counts}, expected {want}")
+
+    # a soft brush line on a scratch preview: untraced, its stamps a second;
+    # then again traced, its device operations
+    preview = torch.zeros((h, w, 4), dtype=torch.uint8, device=dev)
+
+    def line():
+        brush = Brush(48.0, 0.2, True)
+        brush.draw_line(preview, (0.10 * w, 0.30 * h), (0.60 * w, 0.45 * h),
+                        primary=(0.85, 0.35, 0.2, 0.9))
+        return brush.stamp_counter
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = line()
+    torch.cuda.synchronize()
+    line_s = time.perf_counter() - t0
+    line_ops = {}
+    _timed_stage(line, {}, "line", line_ops)
+    return (counts, stages, stage_ms, busy_ms, device_ops, overhead,
+            (n, line_s, line_ops["line"]))
 
 
 # ---------------------------------------------------------------------------
@@ -3213,7 +3907,7 @@ def profile_flatten(dev, doc):
         doc.composite(device=dev)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    busy, kernel = _device_us(prof, "composite_kernel")
+    busy, kernel, _ = _device_us(prof, "composite_kernel")
     device = (f"in one traced flatten of {traced_ms:.3f} ms wall, device busy "
               f"{busy / 1e3:.3f} ms ({busy / 1e3 / traced_ms * 100:.1f}% of it, copies "
               f"included), K-composite {kernel / 1e3:.3f} ms" if busy
@@ -3225,33 +3919,43 @@ def profile_flatten(dev, doc):
 
 
 def _device_us(prof, name=""):
-    """Device time in a torch.profiler trace, in us: every kernel's and
-    copy's, and those whose name holds `name`."""
+    """Device time in a torch.profiler trace, in us: every kernel's, copy's
+    and fill's, and those whose name holds `name`; and how many there were
+    (launches, copies and fills).  A sum over the trace's raw kineto events
+    (parsing them into key_averages' rows takes about 80 us an event:
+    minutes over a brush stroke's 10^5 launches)."""
     import torch
 
     busy = named = 0.0
-    for e in prof.key_averages():
-        # kernels and copies only: a host op's row repeats its kernels' time
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+    ops = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+        us = e.duration_ns() / 1e3
         busy += us
-        if name and name in e.key:
+        ops += 1
+        if name and name in e.name():
             named += us
-    return busy, named
+    return busy, named, ops
 
 
 def _time_ms(fn, runs=TIMED_RUNS):
-    """One call's time in ms: the median of `runs` samples after warm-up,
-    each a pair of CUDA events around one call (so the host's time from the
-    first event to the launch counts)."""
+    """One call's time in ms: the median of `runs` samples after three
+    calls of warm-up (one, and LONG_RUNS samples, where that call took over
+    LONG_CALL_MS), each a pair of CUDA events around one call (so the
+    host's time from the first event to the launch counts)."""
     import torch
 
-    for _ in range(3):
-        fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if (time.perf_counter() - t0) * 1e3 > LONG_CALL_MS:
+        runs = min(runs, LONG_RUNS)
+    else:
+        fn()
+        fn()
+        torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
@@ -3416,7 +4120,8 @@ def time_cases(dev, gen, card):
                           lambda x=x, taps=taps: gaussian_blur_pass(x, taps),
                           _bound(2 * 4 * 4 * px, 2 * len(taps) * 4 * px, F32_OPS_PER_S)))
     library, extra = _warp_cases(gen, dev, img, batch, cases)
-    print(f"timed cases, CUDA events, median of {TIMED_RUNS} [card: {card}]:")
+    print(f"timed cases, CUDA events, median of {TIMED_RUNS} (of {LONG_RUNS} for a call "
+          f"over {LONG_CALL_MS:.0f} ms) [card: {card}]:")
     result = []
     for name, fn, (bound_ms, bound_by) in cases:
         ms = _time_ms(fn)
@@ -3607,8 +4312,10 @@ def time_kernels(dev, gen, card):
     from paintfe_tpu_torch.ops.warp_kernel import (gather_bilinear_plain,
                                                    gather_bilinear_u8)
 
-    time_cases(dev, gen, card)
-    time_route_limits(dev, gen, card)
+    with _section("timed cases"):
+        time_cases(dev, gen, card)
+    with _section("route limits"):
+        time_route_limits(dev, gen, card)
     h, w = UHD
     px = h * w
     frame = px * 4  # bytes of one u8 RGBA frame
@@ -3761,23 +4468,28 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     errs = {name: [] for name in KERNEL_SOURCES}
     try:
-        check_blur(dev, gen, errs["gaussian_blur_fused"])
-        check_chain(dev, gen, errs["fused_chain_kernel"])
-        check_median(dev, gen, errs["median_kernel"])
-        check_warp(dev, gen, errs["gather_bilinear_u8"])
-        torch.cuda.empty_cache()
-        check_composite(dev, gen, errs["composite_stack_kernel"])
-        check_composite_paths(dev, gen, errs["composite_stack_kernel"])
-        check_blur_pass(dev, gen, errs["gaussian_blur_pass"])
-        torch.cuda.empty_cache()
-        check_effects(dev, gen)
-        check_streams(dev)
-        torch.cuda.empty_cache()
+        with _section("kernel checks"):
+            check_blur(dev, gen, errs["gaussian_blur_fused"])
+            check_chain(dev, gen, errs["fused_chain_kernel"])
+            check_median(dev, gen, errs["median_kernel"])
+            check_warp(dev, gen, errs["gather_bilinear_u8"])
+            torch.cuda.empty_cache()
+            check_composite(dev, gen, errs["composite_stack_kernel"])
+            check_composite_paths(dev, gen, errs["composite_stack_kernel"])
+            check_blur_pass(dev, gen, errs["gaussian_blur_pass"])
+            torch.cuda.empty_cache()
+        with _section("effect checks and streams"):
+            check_effects(dev, gen)
+            check_streams(dev)
+            torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             phases = drive_main_paths(dev, gen, pathlib.Path(tmp), card)
-            time_input_stages(dev, pathlib.Path(tmp) / "inputs", card)
-        times = time_kernels(dev, gen, card)
-        time_effects(dev, gen, card)
+            with _section("input stages timed"):
+                time_input_stages(dev, pathlib.Path(tmp) / "inputs", card)
+        with _section("time_kernels in all"):
+            times = time_kernels(dev, gen, card)
+        with _section("effects timed"):
+            time_effects(dev, gen, card)
     finally:
         shutdown_encode_pool()
 
@@ -3790,7 +4502,8 @@ def main() -> int:
          "max_abs_err": max(errs[name]), **times[name]}
         for name, (source, replaces) in KERNEL_SOURCES.items()]
     print(f"smoke: {time.perf_counter() - started:.1f} s, the kernels' build included "
-          f"[card: {card}]")
+          f"[card: {card}]; by section: " + ", ".join(f"{name} {sec:.1f} s"
+                                                    for name, sec in SECTION_S.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

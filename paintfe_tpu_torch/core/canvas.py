@@ -137,7 +137,8 @@ class Canvas:
     # Interactive preview overlay for the active layer (canvas_state.rs:24-127):
     # pre-blended into the active layer before compositing so it inherits
     # the layer's blend mode and opacity.
-    preview: Optional[np.ndarray] = None  # u8 [H, W, 4]
+    # u8 [H, W, 4]: a host array, or a tensor a stroke keeps on its device
+    preview: Optional[Any] = None
     preview_blend_mode: BlendMode = BlendMode.NORMAL
     preview_is_eraser: bool = False
     preview_replaces_layer: bool = False
@@ -327,7 +328,10 @@ def flatten(canvas: Canvas, pixels: Callable, conceal: Callable, device,
     alphas = []  # of the raw raster layers and the preview, at the tile window
     preview = None
     if canvas.preview is not None:
-        grown = upload(canvas.preview[ty0:ty0 + rh, tx0:tx0 + rw], device)
+        grown = canvas.preview[ty0:ty0 + rh, tx0:tx0 + rw]
+        # a stroke's preview may stay resident on the device as a tensor
+        grown = (grown.to(device) if isinstance(grown, torch.Tensor)
+                 else upload(grown, device))
         alphas.append(grown[..., 3])
         preview = grown[y0 - ty0:y0 - ty0 + bh, x0 - tx0:x0 - tx0 + bw].contiguous()
     acc = None  # transparent until the first run or adjustment

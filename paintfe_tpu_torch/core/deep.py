@@ -7,8 +7,10 @@ Reinhard tonemap) and src/canvas/layers.rs:193-365 (PixelFormat,
 HdrMetadata, ImageMetadata, AdjustmentKind + per-pixel application).
 
 Everything here is host numpy except `AdjustmentLayerData.apply` and
-`apply_with_opacity`, which run on torch tensors of any device: the
-flatten keeps its accumulator on the card between raster runs.  Their
+`apply_with_opacity`, which run on torch tensors of any device (the
+flatten keeps its accumulator on the card between raster runs), and
+`DeepRgbaBuffer.sync_region_from_u8`, which converts a tensor's dirty
+region where the tensor lies (a stroke's commit on the card).  Their
 scalars (the exposure gain, the brightness/contrast factor) are computed on
 the host in numpy f32, as the JAX package computes them, and never by a
 card `pow` or divide.
@@ -22,6 +24,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from paintfe_tpu_torch.utils.quant import ieee_div
 
 f32 = np.float32
 
@@ -91,6 +95,45 @@ class DeepRgbaBuffer:
             v = np.clip(self.data.astype(f32), 0.0, 1.0) * f32(255.0)
             out = np.floor(v + f32(0.5)).astype(np.uint8)
         return out.reshape(height, width, 4)
+
+    def sync_region_from_u8(self, preview, x0: int, y0: int, x1: int, y1: int):
+        """Update only the dirty region [y0:y1, x0:x1] from the u8 preview
+        (layers.rs:506-583): untouched deep samples keep full precision.
+
+        `preview` is the whole u8 [H, W, 4] layer, a numpy array or a torch
+        tensor on any device; a tensor's region converts where it lies
+        (the f32 quotient by 255 a true divide) and is read back once, the
+        f16 bit conversion on the host.  The origin is clamped as well as
+        the far corner, so a dab straddling the top or left edge syncs."""
+        h, w = preview.shape[:2]
+        x0 = max(x0, 0)
+        y0 = max(y0, 0)
+        x1 = min(x1, w)
+        y1 = min(y1, h)
+        if x0 >= x1 or y0 >= y1:
+            return
+        region = preview[y0:y1, x0:x1]
+        fmt = PixelFormat(self.format)
+        flat = self.data.reshape(h, w, 4)
+        if isinstance(region, torch.Tensor):
+            if fmt == PixelFormat.RGBA_U8:
+                flat[y0:y1, x0:x1] = region.cpu().numpy()
+            elif fmt == PixelFormat.RGBA_U16:
+                flat[y0:y1, x0:x1] = (region.to(torch.int32) * 257).cpu().numpy()
+            else:
+                unit = ieee_div(region.float(), 255.0).cpu().numpy()
+                flat[y0:y1, x0:x1] = (unit if fmt == PixelFormat.RGBA_F32
+                                      else f32_to_f16_bits(unit).reshape(unit.shape))
+        elif fmt == PixelFormat.RGBA_U8:
+            flat[y0:y1, x0:x1] = region
+        elif fmt == PixelFormat.RGBA_U16:
+            flat[y0:y1, x0:x1] = region.astype(np.uint16) * 257
+        elif fmt == PixelFormat.RGBA_F16:
+            flat[y0:y1, x0:x1] = f32_to_f16_bits(
+                region.astype(f32) / f32(255.0)).reshape(region.shape)
+        else:
+            flat[y0:y1, x0:x1] = region.astype(f32) / f32(255.0)
+        self.data = flat.reshape(-1)
 
 
 @dataclasses.dataclass

@@ -1,16 +1,18 @@
-"""The port's host-side C++ (the counterpart of paintfe_tpu.native without
-its inpainting): bytecodec.cpp's PNG defilter and TIFF LZW encoder and
-decoder, ljpeg.cpp's lossless-JPEG (SOF3) and jpegdct.cpp's baseline-DCT
-decoders for RAW containers (io/raw.py), and neuquant.cpp's GIF palette
-trainer (io/neuquant.py).
+"""The port's host-side C++ (the counterpart of paintfe_tpu.native):
+bytecodec.cpp's PNG defilter and TIFF LZW encoder and decoder, ljpeg.cpp's
+lossless-JPEG (SOF3) and jpegdct.cpp's baseline-DCT decoders for RAW
+containers (io/raw.py), neuquant.cpp's GIF palette trainer
+(io/neuquant.py), and inpaint.cpp's Content-Aware Fill: PatchMatch and the
+instant brush (ops/inpaint.py).
 
 g++ builds the sources at first use, into one library, into
 ``paintfe_tpu_torch/build/`` (git-ignored), under a name keyed by a hash of the
 sources and flags, as
 utils/cuda_build.py does for the kernels; a failed build raises with the
 compiler's message: no caller falls back to Python when the build fails.
-``-ffp-contract=off`` as in the JAX package: NeuQuant's f64 updates and the
-DCT's float IDCT must not fuse a multiply and an add.
+``-ffp-contract=off`` as in the JAX package: NeuQuant's f64 updates, the
+DCT's float IDCT and the inpainting's f32 sums must not fuse a multiply
+and an add.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import subprocess
 
 _DIR = pathlib.Path(__file__).resolve().parent
 SOURCES = tuple(_DIR / name for name in (
-    "bytecodec.cpp", "ljpeg.cpp", "jpegdct.cpp", "neuquant.cpp"))
+    "bytecodec.cpp", "ljpeg.cpp", "jpegdct.cpp", "neuquant.cpp", "inpaint.cpp"))
 BUILD_DIR = _DIR.parent / "build"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-ffp-contract=off", "-std=c++17")
 
@@ -43,6 +45,10 @@ _SIGNATURES = {
     "jpegdct_decode": ((_U8P, _U32, _U8P, _U64), ctypes.c_int),
     "neuquant_quantize": ((_U8P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _U8P, _U8P),
                           ctypes.c_int),
+    "patchmatch_fill": ((_U8P, _U8P, _U8P, _U32, _U32, _U32, _U32), None),
+    "inpaint_instant_brush": ((_U8P, _U8P, _U8P, _U32, _U32, ctypes.c_float,
+                               ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                               ctypes.c_float), None),
 }
 
 

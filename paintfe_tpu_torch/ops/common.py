@@ -27,8 +27,12 @@ def as_image(img, device="cuda") -> torch.Tensor:
     return host.to(resolve_device(device))
 
 
-def coord_grids(h: int, w: int, device="cpu"):
-    """f32 pixel-coordinate grids (xs [H, W], ys [H, W])."""
+def coord_grids(h: int, w: int, device="cuda"):
+    """f32 pixel-coordinate grids (xs [H, W], ys [H, W]) on `device` (the
+    card unless the caller passes "cpu")."""
+    from paintfe_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
     xs = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
     ys = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
     return xs, ys

@@ -75,9 +75,10 @@ def _bulge_params(amount: float, ox: float, oy: float, h: int, w: int):
     return cx, cy, max_r, strength
 
 
-def bulge_field(amount: float, origin, h: int, w: int, device="cpu"):
+def bulge_field(amount: float, origin, h: int, w: int, device="cuda"):
     """The bulge's source coordinates and normalized radius, each f32
-    [H, W] on `device`: (src_x, src_y, norm)."""
+    [H, W] on `device` (the card unless the caller passes "cpu"): (src_x,
+    src_y, norm)."""
     cx, cy, max_r, strength = _bulge_params(
         float(amount), float(origin[0]), float(origin[1]), h, w)
     cx, cy = float(f32(cx)), float(f32(cy))

@@ -35,9 +35,13 @@ class HalftoneShape(enum.IntEnum):
     LINE = 3
 
 
-def vignette_factor(amount: float, softness: float, h: int, w: int, device="cpu"):
-    """vf = clip(1 - amount * min(dist / soft, 1)^2, 0, 1), f32 [H, W, 1],
-    dist the distance to the centre over the half-diagonal."""
+def vignette_factor(amount: float, softness: float, h: int, w: int, device="cuda"):
+    """vf = clip(1 - amount * min(dist / soft, 1)^2, 0, 1), f32 [H, W, 1]
+    on `device` (the card unless the caller passes "cpu"), dist the
+    distance to the centre over the half-diagonal."""
+    from paintfe_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
     wf, hf = f32(w), f32(h)
     cx = f32(wf / f32(2.0))
     cy = f32(hf / f32(2.0))

@@ -72,8 +72,10 @@ def gradient_lut(stops) -> np.ndarray:
     return lut
 
 
-def gradient_t(shape, start, end, repeat, h: int, w: int, device="cpu") -> torch.Tensor:
-    """The gradient parameter t of every pixel, f32 [H, W] on `device`."""
+def gradient_t(shape, start, end, repeat, h: int, w: int, device="cuda") -> torch.Tensor:
+    """The gradient parameter t of every pixel, f32 [H, W] on `device` (the
+    card unless the caller passes "cpu")."""
+    device = resolve_device(device)
     shape = GradientShape(shape)
     sx, sy = f32(start[0]), f32(start[1])
     ex, ey = f32(end[0]), f32(end[1])

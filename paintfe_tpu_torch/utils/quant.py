@@ -18,8 +18,10 @@ def ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
 
     PyTorch's CUDA divide turns a division by a host scalar into a multiply
     by its reciprocal (1 ulp off for most divisors); a divisor tensor on the
-    same device keeps the true divide."""
-    return x / torch.tensor(c, dtype=torch.float32, device=x.device)
+    same device keeps the true divide.  The divisor is filled on the device
+    (``torch.full``): ``torch.tensor(c, device=...)`` would copy it from the
+    host and wait for the stream, once a call."""
+    return x / torch.full((), c, dtype=torch.float32, device=x.device)
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:

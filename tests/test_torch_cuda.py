@@ -5,6 +5,8 @@ CUDA device is present (the CPU test run), and runs on the card with
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -982,3 +984,223 @@ def test_raw_develop_keeps_subnormals_nan_and_inf_on_the_card(dev, photometric):
     assert np.array_equal(rgba, want_rgba)
     if photometric == 1:  # the linear path keeps each sample: no flush to zero
         assert got[0, 0, 0] == np.float32(1e-40) and got[5, 4, 0] == np.float32(2.0 ** -140)
+
+
+# -- the painting and vector tools on the card ---------------------------------
+
+_TOOL_SHAPE = (53, 67)  # odd sizes: rows, columns
+
+
+def _tool_selection():
+    sel = np.zeros(_TOOL_SHAPE, np.uint8)
+    sel[3:50, 9:60] = 255
+    sel[20:24, :] = 0
+    return sel
+
+
+def _on_both(dev, make, draw):
+    """draw(target) on a u8 tensor on the card and on the CPU, from one
+    numpy-seeded image; returns both results on the host."""
+    host = make()
+    card = torch.from_numpy(host.copy()).to(dev)
+    cpu = torch.from_numpy(host.copy())
+    draw(card)
+    draw(cpu)
+    return card.cpu().numpy(), cpu.numpy()
+
+
+def _tool_image(seed=50):
+    return np.random.default_rng(seed).integers(0, 256, _TOOL_SHAPE + (4,), np.uint8)
+
+
+@pytest.mark.parametrize("mode", ["NORMAL", "DODGE", "BURN", "SPONGE"])
+@pytest.mark.parametrize("aa", [True, False], ids=["aa", "aliased"])
+@pytest.mark.parametrize("eraser", [False, True], ids=["paint", "erase"])
+@pytest.mark.parametrize("props", [{}, {"scatter": 0.5},
+                                   {"hue_jitter": 0.7, "brightness_jitter": 0.4}],
+                         ids=["plain", "scatter", "jitter"])
+def test_brush_on_the_card_equals_the_cpu(dev, mode, aa, eraser, props):
+    """A line from beyond the top-left corner off the bottom-right one, under
+    a selection; the card's stamps give the CPU's bytes."""
+    from paintfe_tpu_torch.tools import Brush, BrushMode
+
+    def draw(img):
+        b = Brush(13.0, 0.35, aa, brush_mode=BrushMode[mode])
+        for k, v in props.items():
+            setattr(b.properties, k, v)
+        b.draw_line(img, (-4.0, -3.0), (70.5, 58.25), is_eraser=eraser,
+                    primary=(0.8, 0.3, 0.2, 0.9), mask=_tool_selection())
+        b.draw_circle(img, (66.0, 0.5), primary=(0.1, 0.9, 0.4, 1.0))
+
+    got, want = _on_both(dev, _tool_image, draw)
+    assert np.array_equal(got, want)
+
+
+def test_brush_stroke_waits_on_nothing(dev):
+    """A stroke under a selection queues its stamps without one
+    synchronisation of the card (no read-back, no blocking copy)."""
+    from paintfe_tpu_torch.tools import Brush, BrushMode
+    from paintfe_tpu_torch.tools import clone_heal
+
+    img = torch.from_numpy(_tool_image()).to(dev)
+    sel = _tool_selection()
+    Brush(9.0).draw_circle(img, (5.0, 5.0))  # the first call's lazy set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Brush(11.0, 0.4).draw_line(img, (2.0, 3.0), (60.0, 50.0), mask=sel)
+        Brush(15.0, brush_mode=BrushMode.DODGE).draw_line(img, (60.0, 3.0), (2.0, 50.0),
+                                                          mask=sel)
+        clone_heal.heal_line(Brush(9.0), img, img.clone(), (5.0, 40.0), (40.0, 45.0), 6.0, sel)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("rotation", [0.0, 30.0, -110.0])
+@pytest.mark.parametrize("eraser", [False, True], ids=["paint", "erase"])
+def test_image_tip_on_the_card_equals_the_cpu(dev, rotation, eraser):
+    from paintfe_tpu_torch.tools import brush_tips
+
+    tip = brush_tips.stock_library().get("Charcoal")
+    mask = brush_tips.rebuild_tip_mask(tip, 19.0, 0.7)
+
+    def draw(img):
+        for k, pos in enumerate([(30.3, 25.8), (1.0, 50.0), (66.0, 2.5)]):
+            brush_tips.draw_image_tip(img, pos, mask, (200, 40, 30, 230), is_eraser=eraser,
+                                      flow=0.8, rotation_deg=rotation, scatter=0.4,
+                                      stamp_counter=k, brush_size=19, selection=_tool_selection())
+
+    got, want = _on_both(dev, _tool_image, draw)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("tool", ["clone", "heal"])
+@pytest.mark.parametrize("size,hardness,aa", [(11.0, 0.3, True), (6.0, 1.0, False)])
+def test_clone_heal_on_the_card_equals_the_cpu(dev, tool, size, hardness, aa):
+    from paintfe_tpu_torch.tools import Brush, clone_heal
+
+    src = _tool_image(51)
+
+    def draw(img):
+        b = Brush(size, hardness, aa)
+        source = torch.from_numpy(src).to(img.device)
+        if tool == "clone":
+            clone_heal.clone_stamp_line(b, img, source, (-0.5, 3.0), (66.0, 52.0), (-7.5, 3.5),
+                                        _tool_selection())
+        else:
+            clone_heal.heal_line(b, img, source, (-0.5, 3.0), (66.0, 52.0), 7.0,
+                                 _tool_selection())
+
+    got, want = _on_both(dev, lambda: np.zeros(_TOOL_SHAPE + (4,), np.uint8), draw)
+    assert np.array_equal(got, want) and (got[..., 3] > 0).any()
+
+
+@pytest.mark.parametrize("pattern,cap,arrow", [("solid", "round", "none"),
+                                               ("dashed", "flat", "both"),
+                                               ("dotted", "round", "start")])
+def test_bezier_on_the_card_equals_the_cpu(dev, pattern, cap, arrow):
+    from paintfe_tpu_torch.tools import vector_tools
+
+    cps = [(2.5, 50.2), (20.0, -10.0), (60.0, 80.0), (66.3, 5.1)]
+
+    def draw(img):
+        vector_tools.rasterize_bezier(img, cps, (200, 30, 40, 220), 4.0, pattern=pattern,
+                                      cap_style=cap, selection=_tool_selection(),
+                                      arrow_side=arrow)
+
+    got, want = _on_both(dev, _tool_image, draw)
+    assert np.array_equal(got, want)
+
+
+_SHAPE_KINDS = ["ELLIPSE", "ROUNDED_RECT", "TRIANGLE", "PARALLELOGRAM", "PENTAGON",
+                "OCTAGON", "CROSS", "CHECK", "HEART", "DIAMOND", "STAR5", "STAR6", "ARROW"]
+
+
+@pytest.mark.parametrize("kind", _SHAPE_KINDS)
+@pytest.mark.parametrize("fill", ["FILLED", "OUTLINE", "BOTH"])
+def test_shape_on_the_card_equals_the_cpu(dev, kind, fill):
+    """Each shape over the canvas's right edge, rotated, on the card and on
+    the CPU (the polygon and star SDFs' angles from the host)."""
+    from paintfe_tpu_torch.ops import shapes
+
+    placed = shapes.PlacedShape(55.3, 20.7, 21.2, 15.9, 0.45, shapes.ShapeKind[kind],
+                                shapes.ShapeFillMode[fill], 3.5, (200, 60, 30, 230),
+                                (20, 90, 250, 255), True, 5.0)
+    got = shapes.rasterize_to_canvas(placed, 67, 53, device=dev).cpu().numpy()
+    assert np.array_equal(got, shapes.rasterize_to_canvas(placed, 67, 53, device="cpu").numpy())
+
+
+@pytest.mark.parametrize("fill", ["FILLED", "OUTLINE", "BOTH"])
+def test_custom_shape_on_the_card_equals_the_cpu(dev, fill):
+    import chip_smoke
+    from paintfe_tpu_torch.ops import shapes
+
+    data = shapes.parse_custom_shape("c", "t", shapes.extract_svg_path_data(chip_smoke.TOOL_SVG))
+    placed = shapes.PlacedShape(30.0, 26.0, 25.0, 22.0, 0.3, shapes.ShapeKind.RECTANGLE,
+                                shapes.ShapeFillMode[fill], 2.0, custom_shape_data=data)
+    got = shapes.rasterize_to_canvas(placed, 67, 53, device=dev).cpu().numpy()
+    assert np.array_equal(got, shapes.rasterize_to_canvas(placed, 67, 53, device="cpu").numpy())
+    icon = shapes.render_custom_shape_icon(data, 37, True, device=dev).cpu().numpy()
+    assert np.array_equal(icon, shapes.render_custom_shape_icon(data, 37, True, "cpu").numpy())
+
+
+def test_perspective_crop_on_the_card_equals_the_cpu(dev):
+    import chip_smoke
+    from paintfe_tpu_torch.tools import vector_tools
+
+    doc = chip_smoke.tools_document(np.random.default_rng(3), 53, 67)
+    doc.layers[1].mask = np.random.default_rng(4).integers(0, 256, (53, 67), np.uint8)
+    card, host = doc, copy.deepcopy(doc)
+    corners = [(3.5, 2.2), (66.1, 6.7), (60.4, 52.0), (-2.2, 45.3)]
+    assert vector_tools.apply_perspective_crop(card, corners, device=dev)
+    assert vector_tools.apply_perspective_crop(host, corners, device="cpu")
+    assert chip_smoke.document_differences(card, host) == []
+
+
+@pytest.mark.parametrize("fmt", ["RgbaU8", "RgbaU16", "RgbaF16", "RgbaF32"])
+def test_sync_region_from_a_card_tensor_equals_the_cpu(dev, fmt):
+    from paintfe_tpu_torch.core.deep import DeepRgbaBuffer, PixelFormat
+
+    base, preview = _tool_image(60), _tool_image(61)
+    card = DeepRgbaBuffer.from_rgba8(base, PixelFormat(fmt))
+    host = DeepRgbaBuffer.from_rgba8(base, PixelFormat(fmt))
+    card.sync_region_from_u8(torch.from_numpy(preview).to(dev), -3, 5, 40, 70)
+    host.sync_region_from_u8(preview, -3, 5, 40, 70)
+    assert np.array_equal(card.data.view(np.uint8), host.data.view(np.uint8))
+
+
+def test_tools_path_on_the_card_equals_the_cpu(dev, tmp_path):
+    """chip_smoke's tools path at 128x96: every step on the card against the
+    same step on the CPU (document, deep buffer, history, the displayed
+    composite); K-composite launches once a raster run of each display and
+    once for the merge down, no other kernel; undo to the start and redo
+    to the end."""
+    import chip_smoke
+    from paintfe_tpu_torch.core.history import HistoryManager
+    from paintfe_tpu_torch.core.project import Project
+    from paintfe_tpu_torch.io.pfe import save_pfe
+
+    src = tmp_path / "doc.pfe"
+    save_pfe(chip_smoke.tools_document(np.random.default_rng(13), 96, 128), str(src))
+    card, host = Project.open(src, device=dev), Project.open(src, device="cpu")
+    for p in (card, host):
+        p.history = HistoryManager(max_entries=100, memory_limit_bytes=1 << 30)
+    states, caches = ({}, {}), ({}, {})
+    counts = {name: fn.launches for name, fn in chip_smoke._wrappers().items()}
+    for (name, step), (_, cpu_step) in zip(
+            chip_smoke.tool_steps(chip_smoke.tool_modules(dev), {"device": dev}),
+            chip_smoke.tool_steps(chip_smoke.tool_modules("cpu"), {"device": "cpu"})):
+        got = chip_smoke._tools_parts(card, states[0], step(card, states[0]), caches[0])
+        want = chip_smoke._tools_parts(host, states[1], cpu_step(host, states[1]), caches[1])
+        assert got == want, (name, sorted(k for k in got if got[k] != want.get(k)))
+    torch.cuda.synchronize()
+    launched = {name: fn.launches - counts[name] for name, fn in chip_smoke._wrappers().items()}
+    want = {name: 0 for name in launched}
+    want["composite_stack_kernel"] = states[0]["composites"] + 1
+    assert launched == want
+    while card.history.undo(card.canvas):
+        pass
+    assert chip_smoke.document_differences(card.canvas, Project.open(src, "cpu").canvas) == []
+    while card.history.redo(card.canvas):
+        pass
+    assert chip_smoke.document_differences(card.canvas, host.canvas) == []

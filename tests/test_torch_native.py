@@ -41,10 +41,10 @@ def test_the_library_holds_every_entry_point():
     lib = native.load()
     assert native.library_path().exists() and native.library_path().parent.name == "build"
     assert [s.name for s in native.SOURCES] == ["bytecodec.cpp", "ljpeg.cpp", "jpegdct.cpp",
-                                                "neuquant.cpp"]
+                                                "neuquant.cpp", "inpaint.cpp"]
     for name in ("png_defilter", "tiff_lzw_encode", "tiff_lzw_decode", "pfe_free",
                  "ljpeg_info", "ljpeg_decode", "jpegdct_info", "jpegdct_decode",
-                 "neuquant_quantize"):
+                 "neuquant_quantize", "patchmatch_fill", "inpaint_instant_brush"):
         assert getattr(lib, name).argtypes
 
 
