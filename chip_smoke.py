@@ -35,7 +35,7 @@ It builds the port's CUDA kernels from csrc/, then:
      blurring at different sigmas around a twist, 20 rounds at 1920x1080,
      each result held against the plain versions (K-blur's constant taps
      are shared by the streams);
-  3. drives nine main paths and one entry call, each with every kernel
+  3. drives ten main paths and one entry call, each with every kernel
      launch count set to 0 just before it and read just after:
      - the headline path: the serial CLI (one 3840x2160 PNG, --device
        cuda) and the --shard CLI (two 3840x2160 and two 1920x1080 PNGs,
@@ -139,6 +139,21 @@ It builds the port's CUDA kernels from csrc/, then:
        run of the flatten and one for the .png save, no other kernel;
        each step's wall time, the card's busy time, the stamps of each
        stroke and an untraced stroke's stamps a second;
+     - the server path: the serving daemon (serve_tcp on --device cuda) on
+       a thread of this process, jobs over TCP on the files the earlier
+       phases wrote (the headline, spatial and effects scripts on their
+       serial 4K PNGs, the six-layer 4K .pfe to PNG and to .pfe, a 24 MP
+       DNG to JPEG), each output byte-equal to that phase's serial CLI
+       file: each kind once, then from one client (traced), then from two
+       clients at once; a missing input and a line of bad JSON fail and
+       the next job runs; ping's jobs_done and every launch exact;
+       shutdown within 10 s; a daemon in a process of its own (seconds to
+       serving, first and second job); then on a 4K layer of a Project on
+       the card: a numpy plugin behind a trust list (equal to 255 - x on
+       RGB), an untrusted one refused and an unresponsive one killed at
+       1 s, the background remover with a deterministic fake session at
+       320 and 1024 against device="cpu", and StageTimer over a K-blur
+       call against its CUDA events;
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -309,12 +324,18 @@ def _wrappers():
 
 
 def _counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    from paintfe_tpu_torch.utils.cuda_build import LAUNCH_LOCK
+
+    with LAUNCH_LOCK:
+        return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    from paintfe_tpu_torch.utils.cuda_build import LAUNCH_LOCK
+
+    with LAUNCH_LOCK:
+        for fn in _wrappers().values():
+            fn.launches = 0
 
 
 def _rand(gen, shape, device):
@@ -1050,8 +1071,8 @@ def _check_launched(tag, counts, names):
 
 def drive_main_paths(dev, gen, tmp, card):
     """The main paths (headline, spatial, layered, effects, inputs,
-    document, menu, raw, tools) and K-pass's entry call, each with launch
-    counts from 0.
+    document, menu, raw, tools, server) and K-pass's entry call, each with
+    launch counts from 0.
     Returns each phase's launch counts, by phase."""
     import torch
 
@@ -1128,10 +1149,424 @@ def drive_main_paths(dev, gen, tmp, card):
         tools = drive_tools_path(dev, tmp, card)
         _check_launched("tools", tools, ("composite_stack_kernel",))
 
+    with _section("server path"):
+        _reset_counts()
+        server = drive_server_path(dev, tmp, card)
+        _check_launched("server", server, ("gaussian_blur_fused", "median_kernel",
+                                           "gather_bilinear_u8", "composite_stack_kernel"))
+
     entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
     return {"headline": headline, "spatial": spatial, "layered": layered,
             "effects": effects, "inputs": inputs, "document": document, "menu": menu,
-            "raw": raw, "tools": tools, "gaussian_blur_pallas entry call": entry}
+            "raw": raw, "tools": tools, "server": server,
+            "gaussian_blur_pallas entry call": entry}
+
+
+# The server path's jobs, by kind: (the earlier phase's folder, its input,
+# its script, the format, the file that phase's serial CLI wrote for that
+# input and script); each job's kernel launches, as _drive_cli and the
+# layered and RAW phases state them per image
+SERVER_JOBS = {
+    "headline": ("headline", "serial/s0.png", "fx.rhai", "png", "out_serial/s0.png"),
+    "spatial": ("spatial", "serial/s0.png", "fx.rhai", "png", "out_serial/s0.png"),
+    "effects": ("effects", "serial/s0.png", "fx.rhai", "png", "out_serial/s0.png"),
+    "layered png": ("layered", "serial/d0.pfe", "fx.rhai", "png", "out_serial/d0.png"),
+    "layered pfe": ("layered", "serial/d0.pfe", "fx.rhai", "pfe", "out_pfe/d0.pfe"),
+    "raw": ("raw", "in/strips.dng", "headline.rhai", "jpeg", "cuda_jpeg/strips.jpg"),
+}
+SERVER_LAUNCHES = {
+    "headline": {"gaussian_blur_fused": 1},
+    "spatial": {"gaussian_blur_fused": 1, "median_kernel": 1, "gather_bilinear_u8": 1},
+    "effects": {"gaussian_blur_fused": 2, "gather_bilinear_u8": 1},
+    "layered png": {"gaussian_blur_fused": 1, "composite_stack_kernel": 2},
+    "layered pfe": {"gaussian_blur_fused": 1},
+    "raw": {"gaussian_blur_fused": 1},
+}
+# the jobs each of two clients sends at once, and how often (cut from three
+# to keep the phase near a minute: a 4K PNG job is mostly the host's encode)
+SERVER_CONCURRENT = ("headline", "spatial", "layered png")
+SERVER_REPEATS = 1
+
+# the demo plugin of the server path: invert RGB, keep alpha, in numpy (so
+# a render measures the pipe and the base64, not a Python loop)
+NUMPY_PLUGIN = '''import base64, json, sys
+import numpy as np
+for line in sys.stdin:
+    req = json.loads(line)
+    if req["cmd"] == "describe":
+        print(json.dumps({"name": "numpy demo", "effects": [{"id": "invert", "name": "Invert"}]}),
+              flush=True)
+    elif req["cmd"] == "render":
+        px = np.frombuffer(base64.b64decode(req["pixels_b64"]), np.uint8)
+        px = px.reshape(req["height"], req["width"], 4).copy()
+        px[..., :3] = 255 - px[..., :3]
+        sys.stdout.write(json.dumps({"ok": True, "pixels_b64": base64.b64encode(px.tobytes())
+                                     .decode()}) + "\\n")
+        sys.stdout.flush()
+'''
+
+
+def inverted(x):
+    """NUMPY_PLUGIN's invert of a u8 [H, W, 4] tensor, on its device."""
+    import torch
+
+    return torch.cat([255 - x[..., :3], x[..., 3:]], dim=-1)
+
+
+class SmokeSession:
+    """An ONNX-Runtime-style session for BackgroundRemover (numpy in, numpy
+    out), deterministic as tests/test_ai.py's: the channel mean of the
+    normalised input times 4 (logits, in the sigmoid's range), or mapped
+    into [0, 1] (probabilities).  Counts its runs."""
+
+    def __init__(self, probabilities: bool):
+        self.probabilities = probabilities
+        self.calls = 0
+
+    def get_inputs(self):
+        import types
+
+        return [types.SimpleNamespace(name="input")]
+
+    def run(self, _outputs, feeds):
+        import numpy as np
+
+        self.calls += 1
+        (x,) = feeds.values()
+        m = x.mean(axis=1, keepdims=True, dtype=np.float32)
+        if self.probabilities:
+            return [np.clip(m * np.float32(0.25) + np.float32(0.5), 0.0, 1.0).astype(np.float32)]
+        return [m * np.float32(4.0)]
+
+
+def _server_job(tmp, kind, out_dir):
+    """The job of `kind` on the earlier phase's files, its output in out_dir."""
+    folder, inp, script, fmt, _ = SERVER_JOBS[kind]
+    d = tmp / folder
+    ext = {"jpeg": "jpg"}.get(fmt, fmt)
+    return {"input": str(d / inp), "script": str(d / script), "format": fmt,
+            "output": str(out_dir / f"{kind.replace(' ', '_')}.{ext}")}
+
+
+def _client(port, jobs):
+    """One client on one connection: each job (a dict, or a raw line) in
+    turn; [(reply, round trip ms)]."""
+    import socket
+
+    out = []
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as sock:
+        f = sock.makefile("rwb")
+        for job in jobs:
+            line = job if isinstance(job, str) else json.dumps(job)
+            t0 = time.perf_counter()
+            f.write((line + "\n").encode())
+            f.flush()
+            reply = json.loads(f.readline())
+            out.append((reply, (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def _fresh_daemon(dev, tmp, root):
+    """`python -m paintfe_tpu_torch.server --device cuda --port 0` (the
+    type of `dev`) in a process of its own: seconds to its `serving on` line (the libraries
+    loaded), then the layered .pfe job twice (the first pays the CUDA
+    context), each output equal to the serial CLI's; then shutdown.
+    Returns (seconds to serving, first ms, second ms)."""
+    import threading
+
+    from paintfe_tpu_torch import server as srv
+
+    here = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(here), env.get("PYTHONPATH")]))
+    err = open(root / "daemon.err", "w")
+    t0 = time.perf_counter()
+    import torch
+
+    proc = subprocess.Popen([sys.executable, "-m", "paintfe_tpu_torch.server", "--port", "0",
+                             "--device", torch.device(dev).type], cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    try:
+        line = {}
+        reader = threading.Thread(target=lambda: line.update(text=proc.stdout.readline()),
+                                  daemon=True)
+        reader.start()
+        reader.join(300)
+        serving_s = time.perf_counter() - t0
+        if not line.get("text", "").startswith("serving on "):
+            raise CheckFailed(f"server daemon: no 'serving on' line ({line.get('text')!r}); "
+                              f"stderr: {(root / 'daemon.err').read_text()[-2000:]}")
+        port = int(line["text"].rsplit(":", 1)[1])
+        want = (tmp / SERVER_JOBS["layered pfe"][0] / SERVER_JOBS["layered pfe"][4]).read_bytes()
+        ms = []
+        for k in range(2):
+            t1 = time.perf_counter()
+            reply = srv.request(port, _server_job(tmp, "layered pfe", root / f"daemon{k}"),
+                                timeout=300)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if not reply.get("ok") or pathlib.Path(reply["output"]).read_bytes() != want:
+                raise CheckFailed(f"server daemon: job {k} {reply}, or its output differs "
+                                  "from the serial CLI's")
+        if not srv.request(port, {"cmd": "shutdown"}).get("shutdown") or proc.wait(30) != 0:
+            raise CheckFailed(f"server daemon: shutdown failed (rc {proc.poll()})")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    return serving_s, ms[0], ms[1]
+
+
+def drive_server_path(dev, tmp, card):
+    """The serving daemon on the card (the tenth path): serve_tcp on a daemon
+    thread of this process, the jobs of SERVER_JOBS on the files the
+    earlier phases wrote, each output byte-equal to that phase's serial CLI
+    file: each kind once from one client (the .pfe job first: the first
+    job after start; the others traced: the card's busy share), then
+    SERVER_CONCURRENT from two clients at once (jobs a second against the
+    same jobs from one client); a missing input and a line of bad JSON
+    fail and the next job succeeds; ping's jobs_done and every launch
+    count exact; shutdown within 10 s; a daemon in a process of its own.  Then
+    the services on a 3840x2160 layer of a Project opened on `dev`: a
+    numpy plugin behind a TrustList, an untrusted and an unresponsive one;
+    BackgroundRemover with SmokeSession at 320 and 1024 against
+    device="cpu"; StageTimer over a K-blur call.  Returns the launch
+    counts."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paintfe_tpu_torch import server as srv
+
+    started = time.perf_counter()
+    root = tmp / "server"
+    root.mkdir()
+    want = {kind: tmp / spec[0] / spec[4] for kind, spec in SERVER_JOBS.items()}
+    expected = {name: 0 for name in _wrappers()}
+    done = []
+
+    def check(tag, kind, reply):
+        if not reply.get("ok"):
+            raise CheckFailed(f"server {tag}: the {kind} job failed: {reply}")
+        if pathlib.Path(reply["output"]).read_bytes() != want[kind].read_bytes():
+            raise CheckFailed(f"server {tag}: the {kind} job's output differs from the "
+                              f"serial CLI's {want[kind]}")
+        for name, k in SERVER_LAUNCHES[kind].items():
+            expected[name] += k
+        done.append(kind)
+
+    server, port = srv.serve_tcp(port=0, device=dev)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        one = {}
+
+        def alone(kind):
+            c0 = _counts()
+            ((reply, ms),) = _client(port, [_server_job(tmp, kind, root / "one")])
+            check("one client", kind, reply)
+            got = {n: c - c0[n] for n, c in _counts().items() if c != c0[n]}
+            if got != SERVER_LAUNCHES[kind]:
+                raise CheckFailed(f"server: the {kind} job launched {got}, expected "
+                                  f"{SERVER_LAUNCHES[kind]}")
+            one[kind] = (ms, reply["elapsed_ms"])
+
+        # each kind once from one client: the .pfe job first (the first job
+        # after start; it runs again after the failures below), then the
+        # others traced (the card's busy share over warm jobs)
+        alone("layered pfe")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for kind in SERVER_JOBS:
+                if kind != "layered pfe":
+                    alone(kind)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        busy_us, _, device_ops = _device_us(prof)
+        kinds = [k for _ in range(SERVER_REPEATS) for k in SERVER_CONCURRENT]
+        one_s = sum(one[k][0] for k in kinds) / 1e3
+        pair = [None, None]
+
+        def send(c):
+            pair[c] = _client(port, [_server_job(tmp, k, root / f"client{c}_{i}")
+                                     for i, k in enumerate(kinds)])
+
+        clients = [threading.Thread(target=send, args=(c,)) for c in range(2)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(900)
+        two_s = time.perf_counter() - t0
+        if any(c.is_alive() for c in clients) or None in pair:
+            raise CheckFailed("server: a client of the two did not finish")
+        for replies in pair:
+            for kind, (reply, _) in zip(kinds, replies):
+                check("two clients", kind, reply)
+        bad = _client(port, [{"input": str(root / "missing.png"), "output": str(root / "x.png")},
+                             "{not json", _server_job(tmp, "layered pfe", root / "after")])
+        if bad[0][0].get("ok") or bad[1][0].get("ok") or not bad[1][0]["error"].startswith(
+                "bad json"):
+            raise CheckFailed(f"server: a missing input or bad JSON did not fail: {bad[:2]}")
+        check("after two failures", "layered pfe", bad[2][0])
+        again = (bad[2][1], bad[2][0]["elapsed_ms"])
+        ping = srv.request(port, {"cmd": "ping"})
+        if ping.get("jobs_done") != len(done):
+            raise CheckFailed(f"server: ping reports {ping}, expected jobs_done {len(done)}")
+        t0 = time.perf_counter()
+        if not srv.request(port, {"cmd": "shutdown"}).get("shutdown"):
+            raise CheckFailed("server: shutdown was not acknowledged")
+        thread.join(10)
+        if thread.is_alive():
+            raise CheckFailed("server: the serving thread did not stop within 10 s")
+        stop_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if thread.is_alive():
+            server.shutdown()
+        server.server_close()
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != expected:
+        raise CheckFailed(f"server: launches {counts}, expected {expected} for {len(done)} jobs")
+    print(f"  ok  server: {len(done)} jobs, each output equal to the serial CLI's file; "
+          f"launches exact {counts}; ping jobs_done {ping['jobs_done']}; a missing input and "
+          f"bad JSON replied ok: false and the next job ran; shutdown in {stop_ms:.1f} ms")
+    print("  server, one client, each kind once (round trip ms / the reply's elapsed_ms): "
+          + ", ".join(f"{k} {ms:.1f}/{el}" for k, (ms, el) in one.items())
+          + f"; the .pfe job first after start, again after the failures {again[0]:.1f}/"
+          f"{again[1]}; card busy {busy_us / 1e3:.3f} ms of the {traced_ms:.1f} ms the other "
+          f"five took ({busy_us / 1e1 / traced_ms:.2f}%, {device_ops} device operations) "
+          f"[card: {card}]")
+    print("  server, two clients at once: " + "; ".join(
+        f"client {c}: " + ", ".join(f"{k} {ms:.1f}/{r['elapsed_ms']}"
+                                   for k, (r, ms) in zip(kinds, pair[c])) for c in range(2))
+        + f"; {2 * len(kinds) / two_s:.3f} jobs/s against {len(kinds) / one_s:.3f} with one")
+    serving_s, daemon_first, daemon_second = _fresh_daemon(dev, tmp, root)
+    print(f"  ok  server daemon in its own process (--device {torch.device(dev).type}): serving after "
+          f"{serving_s:.3f} s (process start, import, the libraries loaded); the layered .pfe "
+          f"job first {daemon_first:.1f} ms, again {daemon_second:.1f} ms (in this process: "
+          f"{one['layered pfe'][0]:.1f} ms first, {again[0]:.1f} again); outputs equal the "
+          "serial CLI's")
+    blurs = server_services(dev, tmp, root, card)
+    torch.cuda.synchronize()
+    counts = _counts()
+    expected["gaussian_blur_fused"] += blurs
+    if counts != expected:
+        raise CheckFailed(f"server path: launches {counts}, expected {expected}")
+    print(f"  server phase: {time.perf_counter() - started:.1f} s wall [card: {card}]")
+    return counts
+
+
+def server_services(dev, tmp, root, card):
+    """The plugin host, the background remover and StageTimer on a
+    3840x2160 layer of the layered phase's document opened on `dev`.
+    Returns the K-blur launches it made (StageTimer's)."""
+    import torch
+
+    from paintfe_tpu_torch import Project
+    from paintfe_tpu_torch.ops import ai
+    from paintfe_tpu_torch.ops.kernels import gaussian_blur_fused
+    from paintfe_tpu_torch.ops.plugins import PluginError, PluginHost, TrustList
+    from paintfe_tpu_torch.utils.profiling import StageTimer
+
+    proj = Project.open(tmp / "layered" / "serial" / "d0.pfe", device=dev)
+    x = torch.from_numpy(proj.canvas.layers[proj.canvas.active_layer_index].pixels).to(dev)
+    exe = root / "invert_plugin.py"
+    exe.write_text(NUMPY_PLUGIN)
+    TrustList(root / "trust.txt").trust(exe)
+    trust = TrustList(root / "trust.txt")
+    host = PluginHost(exe, trust=trust, launcher=(sys.executable,), timeout=120)
+    try:
+        host.describe()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = host.render("invert", x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        host.close()
+    if out.device != x.device or not torch.equal(out, inverted(x)):
+        raise CheckFailed("plugin: the render differs from 255 - x on RGB with alpha kept")
+    untrusted = root / "untrusted_plugin.py"
+    untrusted.write_text(NUMPY_PLUGIN + "# another build\n")
+    try:
+        PluginHost(untrusted, trust=trust, launcher=(sys.executable,))
+        raise CheckFailed("plugin: an untrusted plugin was started")
+    except PluginError:
+        pass
+    hang = root / "hang_plugin.py"
+    hang.write_text("import time\ntime.sleep(600)\n")
+    stuck = PluginHost(hang, launcher=(sys.executable,), timeout=1.0)
+    t0 = time.perf_counter()
+    try:
+        stuck.describe()
+        raise CheckFailed("plugin: an unresponsive plugin answered")
+    except PluginError as e:
+        killed_s = time.perf_counter() - t0
+        if "unresponsive" not in str(e) or killed_s > 10:
+            raise CheckFailed(f"plugin: the unresponsive plugin: {e} after {killed_s:.1f} s")
+    finally:
+        stuck.close()
+    ms = statistics.median(times)
+    mb = x.numel() / 1e6
+    print(f"  ok  plugin: numpy invert of a {x.shape[1]}x{x.shape[0]} layer on the card equals "
+          f"255 - x (alpha kept); round trip {ms:.1f} ms median of 3 ({mb / ms * 1e3:.1f} MB/s "
+          f"of the frame, {mb:.1f} MB each way, base64 on one line); untrusted refused; "
+          f"unresponsive killed after {killed_s:.2f} s [card: {card}]")
+
+    for kind, probabilities in (("u2net", False), ("birefnet", True)):
+        on_card = ai.BackgroundRemover(model_kind=kind, session=SmokeSession(probabilities),
+                                       device=dev)
+        on_cpu = ai.BackgroundRemover(model_kind=kind, session=SmokeSession(probabilities),
+                                      device="cpu")
+        for threshold in (None, 0.5):
+            got = on_card.remove_background(x, threshold)
+            if got.device != x.device or not torch.equal(
+                    got.cpu(), on_cpu.remove_background(x.cpu(), threshold)):
+                raise CheckFailed(f"ai {kind}: the card's remove_background (threshold "
+                                  f"{threshold}) differs from device='cpu'")
+        # the call's steps one by one: the host's on the wall clock, the
+        # card's (copies included) by CUDA events, _time_ms's median
+        h, w = x.shape[:2]
+        host, on_dev = {}, {}
+        t0 = time.perf_counter()
+        rgb = ai._resize_rgb(x, on_card.size)
+        host["download and resize"] = (time.perf_counter() - t0) * 1e3
+        on_dev["upload and normalise"] = _time_ms(lambda: ai._normalize(rgb, x.device))
+        pre = ai._normalize(rgb, x.device)
+        on_dev["feed download"] = _time_ms(lambda: pre.cpu())
+        feed = pre.cpu().numpy()
+        t0 = time.perf_counter()
+        raw = on_card.session.run(None, {on_card.input_name: feed})[0]
+        t1 = time.perf_counter()
+        m8 = ai._mask_u8(raw, h, w)
+        host["session"], host["sigmoid, min-max and resize"] = (
+            (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        on_dev["mask upload and divide"] = _time_ms(lambda: ai._unit_mask(m8, x.device))
+        mask = ai._unit_mask(m8, x.device)
+        on_dev["alpha"] = _time_ms(lambda: ai._apply_mask(x, mask))
+        print(f"  ok  ai {kind} ({on_card.size}x{on_card.size}, "
+              f"{'probabilities' if probabilities else 'logits'}): remove_background on the "
+              f"card equals device='cpu' with and without a threshold; host "
+              f"{sum(host.values()):.1f} ms (" + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+              + f"), card {sum(on_dev.values()):.3f} ms (" + ", ".join(
+                  f"{k} {v:.3f}" for k, v in on_dev.items()) + f") [card: {card}]")
+
+    timer = StageTimer(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with timer.stage("blur") as h:
+        start.record()
+        h.result = gaussian_blur_fused(x, 8.0)
+        end.record()
+    event_ms, stage_ms = start.elapsed_time(end), timer.totals()["blur"] * 1e3
+    if stage_ms < event_ms:
+        raise CheckFailed(f"StageTimer: {stage_ms:.3f} ms, below the K-blur call's CUDA-event "
+                          f"time {event_ms:.3f} ms")
+    print(f"  ok  StageTimer on the card: {stage_ms:.3f} ms over a K-blur call whose CUDA "
+          f"events read {event_ms:.3f} ms")
+    return 1
 
 
 def drive_blur_pass_entry(dev, png):

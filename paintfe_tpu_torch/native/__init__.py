@@ -23,6 +23,7 @@ import hashlib
 import os
 import pathlib
 import subprocess
+import threading
 
 _DIR = pathlib.Path(__file__).resolve().parent
 SOURCES = tuple(_DIR / name for name in (
@@ -60,10 +61,20 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libpfe_native_{h.hexdigest()[:16]}.so"
 
 
+# One build at a time in a process: the temporary file is named by the
+# process, and the server's handler threads may ask at once.
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library; raises RuntimeError with
     g++'s message when the build fails."""
+    with _BUILD_LOCK:
+        return _build_and_load()
+
+
+def _build_and_load() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

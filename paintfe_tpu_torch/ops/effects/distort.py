@@ -272,10 +272,14 @@ def dents_noise(scale: float, seed: int, octaves: int, roughness: float, h: int,
 
 
 def dents_field(scale, amount, seed, octaves, roughness, pinch, wrap, h, w,
-                device="cpu"):
+                device="cuda"):
     """The dents' source coordinates (src_x, src_y), f32 [H, W] on
-    `device`: the host noise planes uploaded, the pinch and the wrap in the
+    `device` (the card unless the caller passes "cpu"; CUDA with no card
+    raises): the host noise planes uploaded, the pinch and the wrap in the
     JAX package's f32 order on the device."""
+    from paintfe_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
     nx_host, ny_host = dents_noise(float(scale), int(seed), int(octaves),
                                    float(roughness), h, w)
     nx = torch.from_numpy(nx_host).to(device)

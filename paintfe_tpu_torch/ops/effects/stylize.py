@@ -68,8 +68,13 @@ def vignette(img: torch.Tensor, amount: float, softness: float, mask=None) -> to
 
 
 def halftone_threshold(dot_size: float, angle_deg: float, shape, h: int, w: int,
-                       device="cpu") -> torch.Tensor:
-    """Each pixel's distance threshold in its rotated cell, f32 [H, W]."""
+                       device="cuda") -> torch.Tensor:
+    """Each pixel's distance threshold in its rotated cell, f32 [H, W] on
+    `device` (the card unless the caller passes "cpu"; CUDA with no card
+    raises)."""
+    from paintfe_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
     ds = float(f32(max(dot_size, 2.0)))
     angle = to_radians_f32(angle_deg)
     cos_a = float(f32(np.cos(angle)))

@@ -89,7 +89,7 @@ def fused_chain_kernel(img, overlay, *, sigma=2.0, brightness=10.0,
     if overlay.shape != img.shape or overlay.device != img.device:
         raise ValueError("fused_chain_kernel: overlay must match the image's "
                          "shape and device")
-    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+    from paintfe_tpu_torch.utils.cuda_build import check, count_launch, load_library
 
     h, w = img.shape[:2]
     out = torch.empty_like(img)
@@ -118,7 +118,7 @@ def fused_chain_kernel(img, overlay, *, sigma=2.0, brightness=10.0,
                                     out.data_ptr(), h, w, levels.data_ptr(),
                                     params.ctypes.data, stream)
     check(rc, "fused_chain_kernel")
-    fused_chain_kernel.launches += 1
+    count_launch(fused_chain_kernel)
     return out
 
 

@@ -15,7 +15,8 @@ core/composite.composite_stack_static, and one pass of _conv_pass).
 `gaussian_blur_fused`, `median_kernel`, `composite_stack_kernel` and
 `gaussian_blur_pass` launch their kernel for a CUDA tensor and take the
 plain version for a CPU tensor; every other case raises.  Each counts its
-launches in `<wrapper>.launches`.
+launches in `<wrapper>.launches` (utils/cuda_build.count_launch: one lock,
+so threads launching at once lose no count).
 """
 
 from __future__ import annotations
@@ -171,7 +172,7 @@ def gaussian_blur_fused(img: torch.Tensor, sigma: float) -> torch.Tensor:
     if img.device.type == "cpu":
         return gaussian_blur_plain(img, sigma)
     check_rgba_u8(img, "gaussian_blur_fused")
-    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+    from paintfe_tpu_torch.utils.cuda_build import check, count_launch, load_library
 
     taps = gaussian_kernel(float(sigma))
     nt = len(taps)
@@ -196,7 +197,7 @@ def gaussian_blur_fused(img: torch.Tensor, sigma: float) -> torch.Tensor:
                                     out.data_ptr(), b, h, w,
                                     taps_dev.data_ptr(), nt, stream)
     check(rc, "gaussian_blur_fused")
-    gaussian_blur_fused.launches += 1
+    count_launch(gaussian_blur_fused)
     return out
 
 
@@ -292,7 +293,7 @@ def median_kernel(img: torch.Tensor, r: int) -> torch.Tensor:
     if img.device.type == "cpu":
         return median_plain(img, r)
     check_rgba_u8(img, "median_kernel")
-    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+    from paintfe_tpu_torch.utils.cuda_build import check, count_launch, load_library
 
     b, h, w = (1, *img.shape[:2]) if img.dim() == 3 else img.shape[:3]
     if b > 65535:
@@ -306,7 +307,7 @@ def median_kernel(img: torch.Tensor, r: int) -> torch.Tensor:
         rc = lib.pfe_median(img.data_ptr(), out.data_ptr(), b, h, w, r,
                             _MEDIAN_ROUTES[median_route(r)], stream)
     check(rc, "median_kernel")
-    median_kernel.launches += 1
+    count_launch(median_kernel)
     return out
 
 
@@ -409,7 +410,7 @@ def composite_stack_kernel(layers, modes, opacities, conceal=None, init=None):
     for m in masks:
         if m is not None:
             _check_plane(m, "conceal", first)
-    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+    from paintfe_tpu_torch.utils.cuda_build import check, count_launch, load_library
 
     h, w = first.shape[:2]
     acc = init
@@ -431,7 +432,7 @@ def composite_stack_kernel(layers, modes, opacities, conceal=None, init=None):
                 None if acc is None else acc.data_ptr(), out.data_ptr(),
                 h * w, stream)
             check(rc, "composite_stack_kernel")
-            composite_stack_kernel.launches += 1
+            count_launch(composite_stack_kernel)
             acc = out
     return acc
 
@@ -514,7 +515,7 @@ def gaussian_blur_pass(x: torch.Tensor, taps) -> torch.Tensor:
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
     if taps.ndim != 1 or len(taps) % 2 == 0:
         raise ValueError(f"gaussian_blur_pass: expected an odd tap count, got {taps.shape}")
-    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+    from paintfe_tpu_torch.utils.cuda_build import check, count_launch, load_library
 
     out = torch.empty_like(x)
     c, h, w = x.shape
@@ -528,7 +529,7 @@ def gaussian_blur_pass(x: torch.Tensor, taps) -> torch.Tensor:
         rc = lib.pfe_blur_pass(x.data_ptr(), taps_dev.data_ptr(), out.data_ptr(),
                                c * h, w, len(taps), seg, stream)
     check(rc, "gaussian_blur_pass")
-    gaussian_blur_pass.launches += 1
+    count_launch(gaussian_blur_pass)
     return out
 
 

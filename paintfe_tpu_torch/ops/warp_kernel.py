@@ -113,7 +113,7 @@ def gather_bilinear_u8(src: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
         return gather_bilinear_plain(src, sx, sy, mode)
     check_rgba_u8(src, "gather_bilinear_u8")
     _check_fields(sx, sy, src)
-    from paintfe_tpu_torch.utils.cuda_build import check, load_library
+    from paintfe_tpu_torch.utils.cuda_build import check, count_launch, load_library
 
     b, hs, ws = (1, *src.shape[:2]) if src.dim() == 3 else src.shape[:3]
     h, w = sx.shape
@@ -133,7 +133,7 @@ def gather_bilinear_u8(src: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
         rc = lib.pfe_warp_bilinear(src.data_ptr(), *fields, out.data_ptr(), b, hs, ws,
                                    h, w, MODES.index(mode), vec, launch_stream(src.device))
     check(rc, "gather_bilinear_u8")
-    gather_bilinear_u8.launches += 1
+    count_launch(gather_bilinear_u8)
     return out
 
 

@@ -22,6 +22,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -96,9 +97,19 @@ def _run_all(cmds):
         return list(pool.map(_run, cmds))
 
 
+# One build at a time in a process: the objects are named by the process,
+# and the server's handler threads may ask at once.
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
+    with _BUILD_LOCK:
+        return _build_and_load()
+
+
+def _build_and_load() -> ctypes.CDLL:
     so = library_path()
     log = so.with_suffix(".log")
     t0 = time.perf_counter()
@@ -141,3 +152,15 @@ def check(rc: int, what: str):
     """Raise if a C entry point returned a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what} failed: cudaError_t {rc}")
+
+
+# One lock for every wrapper's launch count: `fn.launches += 1` is a read,
+# an add and a write, and the server's handler threads launch at once.
+LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper):
+    """Add one to `wrapper.launches`, the count a kernel's wrapper keeps of
+    its launches; read a consistent set of counts under LAUNCH_LOCK."""
+    with LAUNCH_LOCK:
+        wrapper.launches += 1

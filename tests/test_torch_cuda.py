@@ -1204,3 +1204,152 @@ def test_tools_path_on_the_card_equals_the_cpu(dev, tmp_path):
     while card.history.redo(card.canvas):
         pass
     assert chip_smoke.document_differences(card.canvas, host.canvas) == []
+
+
+# --- the server path and the services (PR 13) -----------------------------------
+
+
+def _server_files(root):
+    """A 64x48 noise PNG, a three-layer .pfe and the smoke's scripts."""
+    import chip_smoke
+    from paintfe_tpu_torch.io.pfe import save_pfe
+
+    rng = np.random.default_rng(23)
+    img = rng.integers(0, 256, (48, 64, 4), np.uint8)
+    img[:6, :, 3] = 0
+    from PIL import Image
+
+    Image.fromarray(img, "RGBA").save(root / "in.png")
+    save_pfe(chip_smoke._layered_document(rng, 96, 128), str(root / "doc.pfe"))
+    jobs = {}
+    for kind, (inp, script, fmt) in {
+            "headline": ("in.png", chip_smoke.HEADLINE, "png"),
+            "spatial": ("in.png", chip_smoke.SPATIAL, "png"),
+            "effects": ("in.png", chip_smoke.EFFECTS, "png"),
+            "layered png": ("doc.pfe", chip_smoke.LAYERED, "png"),
+            "layered pfe": ("doc.pfe", chip_smoke.LAYERED, "pfe")}.items():
+        name = kind.replace(" ", "_")
+        (root / f"{name}.rhai").write_text(script)
+        jobs[kind] = {"input": str(root / inp), "script": str(root / f"{name}.rhai"),
+                      "format": fmt, "output": f"{name}.{fmt}"}
+    return jobs
+
+
+def test_server_on_the_card_equals_the_cpu_with_two_clients(dev, tmp_path):
+    """The jobs through a server on the card give the bytes of a server on
+    the CPU; two clients at once on the card give the same bytes again."""
+    import threading
+
+    import chip_smoke
+    from paintfe_tpu_torch import server as srv
+
+    jobs = _server_files(tmp_path)
+
+    def job(kind, d):
+        return dict(jobs[kind], output=str(tmp_path / d / jobs[kind]["output"]))
+
+    servers = {}
+    try:
+        for d in ("cuda", "cpu"):
+            s, port = srv.serve_tcp(port=0, device=dev if d == "cuda" else "cpu")
+            threading.Thread(target=s.serve_forever, daemon=True).start()
+            servers[d] = (s, port)
+            for kind in jobs:
+                assert srv.request(port, job(kind, d))["ok"], (d, kind)
+        out = [None, None]
+
+        def client(c):
+            out[c] = chip_smoke._client(servers["cuda"][1],
+                                        [job(k, f"c{c}_{r}") for r in range(2) for k in jobs])
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads)
+        assert all(r["ok"] for replies in out for r, _ in replies)
+        assert srv.request(servers["cuda"][1], {"cmd": "ping"})["jobs_done"] == 5 * len(jobs)
+    finally:
+        for s, _ in servers.values():
+            s.shutdown()
+            s.server_close()
+    for kind, spec in jobs.items():
+        want = (tmp_path / "cpu" / spec["output"]).read_bytes()
+        for d in ["cuda"] + [f"c{c}_{r}" for c in range(2) for r in range(2)]:
+            assert (tmp_path / d / spec["output"]).read_bytes() == want, (kind, d)
+
+
+def test_plugin_render_of_a_card_tensor(dev, tmp_path):
+    import sys
+
+    import chip_smoke
+    from paintfe_tpu_torch.ops.plugins import PluginHost
+
+    exe = tmp_path / "invert.py"
+    exe.write_text(chip_smoke.NUMPY_PLUGIN)
+    img = _img((53, 67), 31, "cpu")
+    host = PluginHost(exe, launcher=(sys.executable,))
+    try:
+        on_card = host.render("invert", img.to(dev))
+        on_cpu = host.render("invert", img)
+    finally:
+        host.close()
+    assert on_card.device == img.to(dev).device and on_card.dtype == torch.uint8
+    assert torch.equal(on_card.cpu(), on_cpu)
+    assert torch.equal(on_card, chip_smoke.inverted(img.to(dev)))
+
+
+@pytest.mark.parametrize("kind", ["u2net", "birefnet"])
+@pytest.mark.parametrize("probabilities", [False, True])
+@pytest.mark.parametrize("threshold", [None, 0.5])
+def test_remove_background_on_the_card_equals_the_cpu(dev, kind, probabilities, threshold):
+    import chip_smoke
+    from paintfe_tpu_torch.ops import ai
+
+    img = _img((75, 101), 32, "cpu")
+    img[:10, :, 3] = 128
+    removers = [ai.BackgroundRemover(model_kind=kind, session=chip_smoke.SmokeSession(probabilities),
+                                     device=d) for d in (dev, "cpu")]
+    got = removers[0].remove_background(img.to(dev), threshold)
+    assert got.device == img.to(dev).device
+    assert torch.equal(got.cpu(), removers[1].remove_background(img, threshold))
+    x = removers[0].preprocess(img.to(dev))
+    assert x.is_cuda and torch.equal(x.cpu(), removers[1].preprocess(img))
+
+
+def test_stage_timer_on_the_card_waits_for_queued_work(dev):
+    from paintfe_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()  # the card by default
+    assert timer.device.type == "cuda"
+    with timer.stage("sleep"):
+        torch.cuda._sleep(200_000_000)  # about 0.1 s of the card's clock
+        done = torch.cuda.Event()
+        done.record()
+    assert done.query()  # the stage ended after the queued work
+    assert timer.totals()["sleep"] > 0.01
+
+
+def test_double_buffer_with_card_produce_waits_on_nothing(dev):
+    """Items made on the card on the staging thread reach the consumer's
+    stream by an event: no host synchronisation anywhere in the loop."""
+    from paintfe_tpu_torch.parallel.prefetch import DoubleBuffer
+
+    base = _img((270, 480), 33, dev)
+
+    def produce(i):
+        torch.cuda._sleep(2_000_000)
+        return kernels.gaussian_blur_fused(base, 1.0 + i), base.roll(i, 0)
+
+    acc = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for blurred, rolled in DoubleBuffer(produce, 6):
+            acc.append(torch.cat([blurred, rolled]).int().sum(dim=(0, 1)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = [torch.cat([kernels.gaussian_blur_plain(base, 1.0 + i), base.roll(i, 0)])
+            .int().sum(dim=(0, 1)) for i in range(6)]
+    assert all(torch.equal(a, w) for a, w in zip(acc, want)) and len(acc) == 6
