@@ -35,7 +35,7 @@ It builds the port's CUDA kernels from csrc/, then:
      blurring at different sigmas around a twist, 20 rounds at 1920x1080,
      each result held against the plain versions (K-blur's constant taps
      are shared by the streams);
-  3. drives ten main paths and one entry call, each with every kernel
+  3. drives eleven main paths and one entry call, each with every kernel
      launch count set to 0 just before it and read just after:
      - the headline path: the serial CLI (one 3840x2160 PNG, --device
        cuda) and the --shard CLI (two 3840x2160 and two 1920x1080 PNGs,
@@ -65,7 +65,7 @@ It builds the port's CUDA kernels from csrc/, then:
        .pfe with a text layer (outline, shadow of blur radius 6) through
        the headline script, serially (-f png, and -f tiff on the PNGs) and
        under --shard, each file equal to the same run's with --device cpu;
-       --animate to APNG over four 4K PNGs and the .pdn and to GIF at
+       --animate to APNG over two 4K PNGs and the .pdn and to GIF at
        1920x1080, serially and under --shard (equal files); and --trace-dir,
        whose trace must name K-blur's and K-composite's kernels; then each
        stage of the path timed alone (16-bit PNG load: zlib, defilter;
@@ -137,8 +137,8 @@ It builds the port's CUDA kernels from csrc/, then:
        (bytes equal to the CPU run's); exactly one K-composite launch a
        raster run of each display, one for the merge down, one a raster
        run of the flatten and one for the .png save, no other kernel;
-       each step's wall time, the card's busy time, the stamps of each
-       stroke and an untraced stroke's stamps a second;
+       each step's wall time (untraced), the stamps of each stroke and a
+       soft line's stamps a second untraced and device operations traced;
      - the server path: the serving daemon (serve_tcp on --device cuda) on
        a thread of this process, jobs over TCP on the files the earlier
        phases wrote (the headline, spatial and effects scripts on their
@@ -154,6 +154,22 @@ It builds the port's CUDA kernels from csrc/, then:
        1 s, the background remover with a deterministic fake session at
        320 and 1024 against device="cpu", and StageTimer over a K-blur
        call against its CUDA events;
+     - the multi-GPU path (parallel/{mesh,distributed,spatial}): one
+       16384x16384 canvas (the reference's 256-Mpix document cap) made on
+       the card from a seed, row-split over meshes of 2, 4 and 8 entries
+       (cuda:0 repeated on a machine with one card), through
+       fused_chain_spatial, median_spatial, warp_spatial (both modes),
+       composite_spatial (five layers) and process_spatial (K-blur, and a
+       blur, brightness/contrast, sepia chain) with the halo exchange;
+       fused_chain_grid on a 2x4 ('batch', 'rows') mesh over four
+       3840x2160 frames; a ragged 2159-row image and one call on the
+       single-device route; each result byte-equal to the same kernel on
+       one device, one launch a mesh entry (the single-device route one);
+       each call's wall time sharded and on one device, the halo rows and
+       the peak device memory; then the batch CLI in two processes wired
+       by PAINTFE_COORDINATOR (gloo) on the headline --shard inputs, each
+       file equal to the single-process run's, a corrupt input in process
+       1's share (both exit 1) and partial wiring (rc 1);
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -1071,8 +1087,8 @@ def _check_launched(tag, counts, names):
 
 def drive_main_paths(dev, gen, tmp, card):
     """The main paths (headline, spatial, layered, effects, inputs,
-    document, menu, raw, tools, server) and K-pass's entry call, each with
-    launch counts from 0.
+    document, menu, raw, tools, server, multigpu) and K-pass's entry call,
+    each with launch counts from 0.
     Returns each phase's launch counts, by phase."""
     import torch
 
@@ -1155,10 +1171,16 @@ def drive_main_paths(dev, gen, tmp, card):
         _check_launched("server", server, ("gaussian_blur_fused", "median_kernel",
                                            "gather_bilinear_u8", "composite_stack_kernel"))
 
+    with _section("multigpu path"):
+        multigpu = drive_multigpu_path(dev, tmp, card)
+        _check_launched("multigpu", multigpu, ("gaussian_blur_fused", "median_kernel",
+                                               "gather_bilinear_u8", "composite_stack_kernel",
+                                               "fused_chain_kernel"))
+
     entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
     return {"headline": headline, "spatial": spatial, "layered": layered,
             "effects": effects, "inputs": inputs, "document": document, "menu": menu,
-            "raw": raw, "tools": tools, "server": server,
+            "raw": raw, "tools": tools, "server": server, "multigpu": multigpu,
             "gaussian_blur_pallas entry call": entry}
 
 
@@ -1567,6 +1589,412 @@ def server_services(dev, tmp, root, card):
     print(f"  ok  StageTimer on the card: {stage_ms:.3f} ms over a K-blur call whose CUDA "
           f"events read {event_ms:.3f} ms")
     return 1
+
+
+# The multi-GPU path: one canvas at the reference's document cap
+# (src/canvas/tiled_image.rs:14-26, 256 Mpix) row-split over meshes of
+# MULTIGPU_ROWS entries (the card's entries repeat where the machine has
+# fewer cards), a batch of 4K frames on a MULTIGPU_GRID ('batch', 'rows')
+# mesh, then the multi-process CLI
+MULTIGPU_CANVAS = (16384, 16384)
+MULTIGPU_ROWS = (2, 4, 8)
+MULTIGPU_GRID = (2, 4)
+MULTIGPU_MODES = (0, 8, 16, 3, 21)
+MULTIGPU_OPACITIES = (1.0, 0.8, 0.5, 0.9, 0.7)
+MULTIGPU_TIMED_RUNS = 3
+# rows of each full-width strip in which a single-device result is held to
+# its plain version (the plain versions' f32 intermediates of the whole
+# canvas would not fit the card)
+MULTIGPU_PLAIN_STRIP = 2048
+
+
+def _mesh_devices(n):
+    """n mesh entries over this machine's cards, in turn (all cuda:0 on a
+    machine with one card)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", k % count) for k in range(n)]
+
+
+def _swirl_field(h, w, dev):
+    """tests/test_spatial.py's swirl, with out-of-bounds corners, built on
+    the card."""
+    import torch
+
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    sx = (xx + 3.0 * torch.sin(yy / 9.0) - 1.5).expand(h, w).contiguous()
+    sy = (yy + 2.0 * torch.cos(xx / 7.0) + 0.75).expand(h, w).contiguous()
+    return sx, sy
+
+
+def _spatial_chain(x, blur=None):
+    """process_spatial's chain (tests/test_spatial.py): a blur at sigma 1.5
+    (K-blur, or `blur`), brightness/contrast, sepia."""
+    from paintfe_tpu_torch.ops.kernels import gaussian_blur_fused
+    from paintfe_tpu_torch.parallel.pipeline import _bc_device, _sepia_device
+
+    return _sepia_device(_bc_device((blur or gaussian_blur_fused)(x, 1.5), 10.0, 20.0), 0.5)
+
+
+def _clamped_rows(t, a, b, r, axis=0):
+    """Rows a - r .. b + r of `t` along `axis`, indices clamped to its
+    extent: rows a..b with the r rows of edge-clamped context a
+    neighbourhood of radius r reads."""
+    import torch
+
+    idx = torch.arange(a - r, b + r, device=t.device).clamp_(0, t.shape[axis] - 1)
+    return t.index_select(axis, idx)
+
+
+def _plain_strips(plain, r):
+    """plain(*inputs) on rows a..b of a whole-image function of radius r:
+    a function (a, b, *inputs) -> plain's rows a..b, computed on the rows
+    with their clamped context and cropped."""
+    def rows(a, b, *inputs):
+        out = plain(*(_clamped_rows(t, a, b, r) for t in inputs))
+        return out[r:r + b - a]
+    return rows
+
+
+def _spatial_calls(canvas, ov, stack, sx, sy):
+    """The sharded calls of the multi-GPU path, by name: (the kernel that
+    each block launches, the sharded call on a mesh, the single-device
+    call, the halo radius, the plain version's rows a..b)."""
+    from paintfe_tpu_torch.core.composite import composite_stack_static
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+    from paintfe_tpu_torch.ops.fused_chain import fused_chain, fused_chain_kernel
+    from paintfe_tpu_torch.ops.kernels import (composite_stack_plain, gaussian_blur_fused,
+                                               gaussian_blur_plain, median_kernel, median_plain)
+    from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_plain, gather_bilinear_u8
+    from paintfe_tpu_torch.parallel import spatial
+
+    def radius(sigma):
+        return len(gaussian_kernel(sigma)) // 2
+
+    r2, r3, r15 = radius(2.0), radius(3.0), radius(1.5)
+    chain_rows = _plain_strips(fused_chain, r2)
+    median_rows = _plain_strips(lambda x: median_plain(x, 2), 2)
+    blur_rows = _plain_strips(lambda x: gaussian_blur_plain(x, 3.0), r3)
+    bcs_rows = _plain_strips(lambda x: _spatial_chain(x, gaussian_blur_plain), r15)
+    calls = {
+        "fused_chain_spatial": (
+            "fused_chain_kernel", lambda m: spatial.fused_chain_spatial(canvas, ov, m),
+            lambda: fused_chain_kernel(canvas, ov), r2,
+            lambda a, b: chain_rows(a, b, canvas, ov)),
+        "median_spatial r=2": (
+            "median_kernel", lambda m: spatial.median_spatial(canvas, 2, m),
+            lambda: median_kernel(canvas, 2), 2, lambda a, b: median_rows(a, b, canvas)),
+        "composite_spatial": (
+            "composite_stack_kernel",
+            lambda m: spatial.composite_spatial(stack, MULTIGPU_MODES, MULTIGPU_OPACITIES, m),
+            lambda: composite_stack_static(stack, MULTIGPU_MODES, MULTIGPU_OPACITIES), 0,
+            lambda a, b: composite_stack_plain(stack[:, a:b], MULTIGPU_MODES,
+                                               MULTIGPU_OPACITIES)),
+        "process_spatial K-blur sigma=3": (
+            "gaussian_blur_fused",
+            lambda m: spatial.process_spatial(canvas, lambda x: gaussian_blur_fused(x, 3.0), m,
+                                              halo=r3),
+            lambda: gaussian_blur_fused(canvas, 3.0), r3,
+            lambda a, b: blur_rows(a, b, canvas)),
+        "process_spatial blur-bc-sepia": (
+            "gaussian_blur_fused",
+            lambda m: spatial.process_spatial(canvas, _spatial_chain, m, halo=r15),
+            lambda: _spatial_chain(canvas), r15, lambda a, b: bcs_rows(a, b, canvas)),
+    }
+    for mode in ("zero", "clamp"):
+        calls[f"warp_spatial {mode}"] = (
+            "gather_bilinear_u8",
+            lambda m, mode=mode: spatial.warp_spatial(canvas, sx, sy, mode, m),
+            lambda mode=mode: gather_bilinear_u8(canvas, sx, sy, mode), 0,
+            lambda a, b, mode=mode: gather_bilinear_plain(canvas, sx[a:b], sy[a:b], mode))
+    return calls
+
+
+def _hold_to_plain(tag, got, plain_rows, strip=MULTIGPU_PLAIN_STRIP):
+    """Hold a single-device result [H, ...] to its plain version, strip by
+    full-width strip of `strip` rows (plain_rows(a, b): the plain rows
+    a..b), tolerance 0; returns the strips compared."""
+    import torch
+
+    h = got.shape[0]
+    for a in range(0, h, strip):
+        b = min(h, a + strip)
+        want = plain_rows(a, b)
+        if want.shape != got[a:b].shape or not torch.equal(want, got[a:b]):
+            diff = (want.int() - got[a:b].int()).abs() if want.shape == got[a:b].shape else None
+            raise CheckFailed(f"multigpu: the single-device {tag} differs from its plain "
+                              f"version in rows {a}..{b} (shape {tuple(want.shape)} against "
+                              f"{tuple(got[a:b].shape)}, max abs err "
+                              f"{None if diff is None else int(diff.max())})")
+        del want
+    return (h + strip - 1) // strip
+
+
+def _launched(fn):
+    """fn()'s result and the kernel launches it made, by wrapper name."""
+    import torch
+
+    before = _counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _counts()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def drive_multigpu_path(dev, tmp, card):
+    """The multi-GPU path (parallel/{mesh,distributed,spatial}), launch
+    counts from 0 before its sharded calls and read after them:
+
+    - one 16384x16384 canvas (268,435,456 px, made on the card from a
+      seed) through fused_chain_spatial (sigma 2), median_spatial (r 2),
+      warp_spatial (both modes, a swirl field with out-of-bounds corners),
+      composite_spatial (five layers) and process_spatial (K-blur at
+      sigma 3, and the blur, brightness/contrast, sepia chain) on rows
+      meshes of 2, 4 and 8 entries; fused_chain_grid on a 2x4 grid mesh
+      over four 3840x2160 frames; fused_chain_spatial and median_spatial
+      at 2159x3840 (4K less one row) on 8 entries, and one call whose
+      blocks are shorter than the halo (the single-device route);
+    - each single-device result held to its plain version first (the
+      canvas in full-width strips with their clamped context, tolerance
+      0), then each sharded result byte-equal to it (computed before the
+      counted window), each sharded call
+      launching its kernel exactly once an entry (once an image an entry
+      on the grid), the single-device route once;
+    - after the counted window: each call's wall time sharded and on one
+      device, the peak device memory and the halo rows copied;
+    - the multi-process CLI (_multiprocess_cli).
+    Returns the launch counts of the sharded calls."""
+    import torch
+
+    from paintfe_tpu_torch.ops.fused_chain import fused_chain, fused_chain_kernel
+    from paintfe_tpu_torch.ops.kernels import median_kernel, median_plain
+    from paintfe_tpu_torch.parallel import spatial
+
+    h, w = MULTIGPU_CANVAS
+    cards = torch.cuda.device_count()
+    print(f"  multigpu: a {w}x{h} canvas ({h * w} px) on rows meshes of {MULTIGPU_ROWS} "
+          f"entries over {cards} card(s) [card: {card}]")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(61)
+
+    def noise(*shape):
+        return torch.randint(0, 256, shape + (4,), generator=gen, dtype=torch.uint8, device=dev)
+
+    canvas, ov = noise(h, w), noise(h, w)
+    ov[: h // 8, :, 3] = 0  # clear-alpha rows pass the base
+    stack = noise(len(MULTIGPU_MODES), h, w)
+    sx, sy = _swirl_field(h, w, dev)
+    calls = _spatial_calls(canvas, ov, stack, sx, sy)
+    # each single-device result, the reference of the sharded calls, held
+    # to its plain version over the whole canvas (tolerance 0) first
+    t0 = time.perf_counter()
+    refs, strips = {}, 0
+    for name, (_, _, single, _, plain_rows) in calls.items():
+        refs[name] = single()
+        strips += _hold_to_plain(name, refs[name], plain_rows)
+        torch.cuda.empty_cache()
+    frames, frame_ovs = noise(4, *UHD), noise(4, *UHD)
+    frame_refs = [fused_chain_kernel(frames[i], frame_ovs[i]) for i in range(4)]
+    # 4K less one row, and 20 rows: blocks of 2.5 rows under K-chain's halo
+    ragged, ragged_ov = (t[:UHD[0] - 1, :UHD[1]].contiguous() for t in (canvas, ov))
+    tiny, tiny_ov = (t[:20, :UHD[1]].contiguous() for t in (canvas, ov))
+    extra_refs = {"ragged chain": fused_chain_kernel(ragged, ragged_ov),
+                  "ragged median": median_kernel(ragged, 2),
+                  "tiny chain": fused_chain_kernel(tiny, tiny_ov)}
+    for tag, got, want in (
+            *((f"fused_chain_kernel frame {i}", frame_refs[i],
+               lambda i=i: fused_chain(frames[i], frame_ovs[i])) for i in range(4)),
+            ("ragged chain", extra_refs["ragged chain"], lambda: fused_chain(ragged, ragged_ov)),
+            ("ragged median", extra_refs["ragged median"], lambda: median_plain(ragged, 2)),
+            ("tiny chain", extra_refs["tiny chain"], lambda: fused_chain(tiny, tiny_ov))):
+        strips += _hold_to_plain(tag, got, lambda a, b, want=want: want(), strip=got.shape[0])
+    torch.cuda.synchronize()
+    print(f"  ok  multigpu: every single-device result equals its plain version, tolerance 0: "
+          f"{len(calls)} calls at {w}x{h} in full-width strips of {MULTIGPU_PLAIN_STRIP} rows "
+          f"with their clamped context, four {UHD[1]}x{UHD[0]} frames, the ragged and tiny "
+          f"inputs whole ({strips} comparisons, {time.perf_counter() - t0:.1f} s)")
+
+    meshes = {n: spatial.rows_mesh(_mesh_devices(n)) for n in MULTIGPU_ROWS}
+    grid = spatial.grid_mesh(*MULTIGPU_GRID, _mesh_devices(MULTIGPU_GRID[0] * MULTIGPU_GRID[1]))
+    nb, nr = MULTIGPU_GRID
+
+    def check(tag, got, want, launched, expect):
+        if launched != expect:
+            raise CheckFailed(f"multigpu: {tag} launched {launched}, expected {expect}")
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise CheckFailed(f"multigpu: {tag} differs from the single-device kernel")
+
+    # the counted window: every call at 16384 rows and at 2159 is sharded,
+    # one launch a mesh entry; 20 rows take the single-device route, one
+    _reset_counts()
+    for name, (kernel, sharded, _, r, _) in calls.items():
+        for n, mesh in meshes.items():
+            out, launched = _launched(lambda: sharded(mesh))
+            check(f"{name} n={n} ({spatial.route(h, n, r)})", out, refs[name], launched,
+                  {kernel: n})
+            del out
+    out, launched = _launched(lambda: spatial.fused_chain_grid(frames, frame_ovs, grid))
+    check(f"fused_chain_grid {nb}x{nr}", out, torch.stack(frame_refs), launched,
+          {"fused_chain_kernel": 4 * nr})
+    mesh8, r_chain = meshes[8], calls["fused_chain_spatial"][3]
+    for tag, fn, kernel, launches in (
+            ("ragged chain", lambda: spatial.fused_chain_spatial(ragged, ragged_ov, mesh8),
+             "fused_chain_kernel", 8),
+            ("ragged median", lambda: spatial.median_spatial(ragged, 2, mesh8),
+             "median_kernel", 8),
+            ("tiny chain", lambda: spatial.fused_chain_spatial(tiny, tiny_ov, mesh8),
+             "fused_chain_kernel", 1)):
+        out, launched = _launched(fn)
+        check(f"{tag} n=8", out, extra_refs[tag], launched, {kernel: launches})
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"  ok  multigpu: {len(calls)} calls x meshes of {MULTIGPU_ROWS} at {w}x{h}, "
+          f"fused_chain_grid on {nb}x{nr} over 4 x {UHD[1]}x{UHD[0]}, two calls at "
+          f"{UHD[1]}x{UHD[0] - 1} and one single-device route, each byte-equal to the "
+          "single-device kernel with exact launches")
+
+    # times, outside the counted window
+    for name, (kernel, sharded, single, r, _) in calls.items():
+        one = _wall_ms(single, MULTIGPU_TIMED_RUNS)
+        parts = []
+        for n, mesh in meshes.items():
+            ms = _wall_ms(lambda: sharded(mesh), MULTIGPU_TIMED_RUNS)
+            halo_rows = 2 * (n - 1) * r
+            parts.append(f"n={n} {spatial.route(h, n, r)} {ms:.3f} ms ({ms / one:.2f}x), "
+                         f"halo {halo_rows} rows / {halo_rows * w * 4} B")
+        print(f"  {name} ({kernel}): one device {one:.3f} ms wall; " + "; ".join(parts)
+              + f" [card: {card}]")
+    grid_ms = _wall_ms(lambda: spatial.fused_chain_grid(frames, frame_ovs, grid),
+                       MULTIGPU_TIMED_RUNS)
+    one_ms = _wall_ms(lambda: [fused_chain_kernel(frames[i], frame_ovs[i]) for i in range(4)],
+                      MULTIGPU_TIMED_RUNS)
+    grid_halo = nb * 2 * (nr - 1) * r_chain * (4 // nb)  # frame rows, all slabs
+    print(f"  fused_chain_grid {nb}x{nr}, 4 x {UHD[1]}x{UHD[0]}: {grid_ms:.3f} ms wall, "
+          f"four single-device calls {one_ms:.3f} ms; halo {grid_halo} frame rows / "
+          f"{grid_halo * UHD[1] * 4} B [card: {card}]")
+    print(f"  multigpu peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[card: {card}]")
+    del canvas, ov, stack, sx, sy, refs, frames, frame_ovs, frame_refs, extra_refs
+    torch.cuda.empty_cache()
+    _multiprocess_cli(tmp, card)
+    return counts
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _cli_processes(argv, root, wiring):
+    """`python -m paintfe_tpu_torch.cli argv` in one process a wiring (a
+    dict of environment variables, or None for none), all started
+    together; returns [(exit code, stdout, stderr)] and the wall seconds
+    until the last ended.  Every process is ended before this returns."""
+    here = pathlib.Path(__file__).resolve().parent
+    base = dict(os.environ)
+    base["PYTHONPATH"] = os.pathsep.join(filter(None, [str(here), base.get("PYTHONPATH")]))
+    for name in ("PAINTFE_COORDINATOR", "PAINTFE_NUM_PROCESSES", "PAINTFE_PROCESS_ID"):
+        base.pop(name, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "paintfe_tpu_torch.cli", *argv],
+                              cwd=root, env=dict(base, **(env or {})), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for env in wiring]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+        results = [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results, time.perf_counter() - t0
+
+
+def _multiprocess_cli(tmp, card):
+    """The multi-process batch CLI on the headline phase's --shard inputs
+    (two 3840x2160 and two 1920x1080 PNGs) and script: one process, then
+    two processes on this machine wired by PAINTFE_COORDINATOR /
+    PAINTFE_NUM_PROCESSES / PAINTFE_PROCESS_ID (gloo), each on its
+    round-robin share; every file equal to the headline phase's --shard
+    run's; then one corrupt input in process 1's share (both exit 1) and
+    partial wiring (rc 1 and the message).  Each wired process reports
+    (-v) the kernel launches it made, which must be K-blur once a shape
+    bucket of its share: its kernels ran on the card."""
+    import shutil
+
+    from PIL import Image
+
+    src = tmp / "headline"
+    root = tmp / "multigpu"
+    root.mkdir()
+    argv = ["-i", str(src / "shard" / "*.png"), "-s", str(src / "fx.rhai"), "--shard",
+            "-f", "png", "--device", "cuda", "-v"]
+
+    def wired(n):
+        port = _free_port()
+        return [{"PAINTFE_COORDINATOR": f"localhost:{port}", "PAINTFE_NUM_PROCESSES": str(n),
+                 "PAINTFE_PROCESS_ID": str(k)} for k in range(n)]
+
+    one, one_s = _cli_processes(argv + ["--output-dir", str(root / "one")], root, [None])
+    two, two_s = _cli_processes(argv + ["--output-dir", str(root / "two")], root, wired(2))
+    for tag, results in (("one process", one), ("two processes", two)):
+        for rc, out, err in results:
+            if rc != 0:
+                raise CheckFailed(f"multigpu CLI, {tag}: rc {rc}\n{out[-2000:]}{err[-2000:]}")
+    files = sorted(str(p) for p in (src / "shard").glob("*.png"))
+    for k, (_, out, _) in enumerate(two):
+        share = [line for line in out.splitlines() if line.startswith("[distributed] process")]
+        print(f"    process {k}: {'; '.join(share)}")
+        if f"[distributed] process {k} handles 2 input(s)" not in share:
+            raise CheckFailed(f"multigpu CLI: process {k} did not report its share of 2")
+        # the process's own launches, counted from its start: the headline
+        # script launches K-blur once a shape bucket of its share
+        mine = files[k::2]
+        buckets = len({Image.open(f).size for f in mine})
+        head = f"[distributed] process {k} kernel launches: "
+        got = [json.loads(line[len(head):]) for line in share if line.startswith(head)]
+        if got != [{"gaussian_blur_fused": buckets}]:
+            raise CheckFailed(f"multigpu CLI: process {k} reported launches {got} for "
+                              f"{len(mine)} inputs in {buckets} shape buckets, expected "
+                              f"[{{'gaussian_blur_fused': {buckets}}}] on the card")
+    want = sorted(p.name for p in (src / "out_shard").iterdir())
+    for tag in ("one", "two"):
+        got = sorted(p.name for p in (root / tag).iterdir())
+        if got != want:
+            raise CheckFailed(f"multigpu CLI ({tag}): files {got}, expected {want}")
+        for name in want:
+            if (root / tag / name).read_bytes() != (src / "out_shard" / name).read_bytes():
+                raise CheckFailed(f"multigpu CLI ({tag}): {name} differs from the "
+                                  "single-process --shard run's")
+    print(f"  ok  multigpu CLI: two processes {two_s:.3f} s wall against one process "
+          f"{one_s:.3f} s (each from process start, 2 x 4K + 2 x 1080p), every file equal "
+          f"to the single-process --shard run's [card: {card}]")
+
+    bad = root / "bad"
+    bad.mkdir()
+    shutil.copy(src / "shard" / "f0.png", bad / "a0.png")
+    (bad / "a1.png").write_bytes(b"not a png at all")  # process 1's share
+    shutil.copy(src / "shard" / "f1.png", bad / "a2.png")
+    bad_argv = ["-i", str(bad / "*.png"), "--shard", "--output-dir", str(root / "bad_out"),
+                "-f", "png", "--device", "cuda"]
+    # the corrupt pair and a partially wired process, all started together
+    partial = {"PAINTFE_COORDINATOR": f"localhost:{_free_port()}", "PAINTFE_NUM_PROCESSES": "2"}
+    results, _ = _cli_processes(bad_argv, root, wired(2) + [partial])
+    corrupt = results[:2]
+    if [rc for rc, *_ in corrupt] != [1, 1]:
+        raise CheckFailed(f"multigpu CLI: a corrupt input in process 1's share gave exit "
+                          f"codes {[rc for rc, *_ in corrupt]}, expected [1, 1]")
+    rc, _, err = results[2]
+    if rc != 1 or "partial multi-process wiring: missing PAINTFE_PROCESS_ID" not in err:
+        raise CheckFailed(f"multigpu CLI: partial wiring gave rc {rc}: {err[-1000:]}")
+    print("  ok  multigpu CLI: a corrupt input in process 1's share -> both processes exit 1; "
+          "partial wiring -> rc 1, " + err.strip().splitlines()[-1])
 
 
 def drive_blur_pass_entry(dev, png):
@@ -3127,11 +3555,11 @@ def drive_tools_path(dev, tmp, card):
     and the saved files the CPU's byte for byte.  K-composite launches
     once a raster run of each display, once for the merge down, once a
     raster run of the flatten and once for the .png save; no other kernel.
-    Prints each step's wall ms (traced) beside the CPU's, the card's busy
-    ms and device operations, each stroke's stamps and operations a stamp,
-    what the traces and digests cost, and a soft line's stamps a second
-    untraced with its operations a stamp traced.  Returns the launch
-    counts of the path."""
+    Prints each step's wall ms (untraced: the per-stage traces' stop and
+    read took about 40 s, cut to keep the smoke under 800 s) beside the
+    CPU's, each stroke's stamps a second, what the digests cost, and a
+    soft line's stamps a second untraced with its operations a stamp
+    traced.  Returns the launch counts of the path."""
     import multiprocessing
 
     import numpy as np
@@ -3148,8 +3576,7 @@ def drive_tools_path(dev, tmp, card):
         target=_tools_cpu_route, args=(str(src), str(root)), daemon=True)
     cpu_route.start()
     try:
-        (counts, stages, stage_ms, busy_ms, device_ops, overhead,
-         line) = _tools_card_route(dev, src, root)
+        counts, stages, stage_ms, digests_s, line = _tools_card_route(dev, src, root)
         cpu_route.join(timeout=900)
         if cpu_route.exitcode != 0:
             raise CheckFailed(f"tools path: the CPU route exited with {cpu_route.exitcode}")
@@ -3181,27 +3608,17 @@ def drive_tools_path(dev, tmp, card):
     stamps = {name: parts["stamps"] for name, _, parts in stages
               if isinstance(parts["stamps"], int) and parts["stamps"] > 1
               and name not in ("undo to the start", "redo to the end")}
-    print(f"  tools stages at {w}x{h}, wall ms with the stage traced (device busy ms and "
-          f"device operations: kernels, copies, fills, from a torch.profiler trace of the "
-          f"stage; a stroke's stamps, its operations a stamp and its traced wall us an "
-          f"operation), the CPU route's ms beside [card: {card}]:")
+    print(f"  tools stages at {w}x{h}, wall ms untraced (a stroke's stamps and stamps a "
+          f"second), the CPU route's ms beside [card: {card}]:")
     for name, ms in stage_ms.items():
-        busy = (f" (device busy {busy_ms[name]:.3f}, {device_ops[name]} operations)"
-                if name in busy_ms else "")
-        rate = (f", {stamps[name]} stamps, {stamps[name] / ms * 1e3:.0f} stamps/s traced, "
-                f"{device_ops[name] / stamps[name]:.1f} operations a stamp, "
-                f"{ms * 1e3 / device_ops[name]:.1f} us an operation"
-                if name in stamps and device_ops.get(name) else "")
+        rate = (f", {stamps[name]} stamps, {stamps[name] / ms * 1e3:.0f} stamps/s"
+                if name in stamps else "")
         cpu = f"; CPU {cpu_ms[name]:.1f}" if name in cpu_ms else ""
-        print(f"    {name}: {ms:.1f}{busy}{rate}{cpu}")
-    wall = sum(stage_ms[name] for name in busy_ms)
+        print(f"    {name}: {ms:.1f}{rate}{cpu}")
     n, line_s, line_ops = line
-    print(f"  tools: the card was busy {sum(busy_ms.values()):.1f} ms of the {wall:.1f} ms "
-          f"the traced stages took ({sum(busy_ms.values()) / wall * 100:.2f}%), "
-          f"{sum(stage_ms.values()) / 1e3:.1f} s of stages in all (the CPU route "
-          f"{sum(cpu_ms.values()) / 1e3:.1f} s beside them); the traces' stop and read "
-          f"{overhead['traces']:.1f} s, the digests {overhead['digests']:.1f} s; PatchMatch "
-          f"{stage_ms['patchmatch']:.1f} ms, perspective crop "
+    print(f"  tools: {sum(stage_ms.values()) / 1e3:.1f} s of stages in all (the CPU route "
+          f"{sum(cpu_ms.values()) / 1e3:.1f} s beside them), the digests {digests_s:.1f} s; "
+          f"PatchMatch {stage_ms['patchmatch']:.1f} ms, perspective crop "
           f"{stage_ms['perspective crop']:.1f} ms; one soft brush line untraced: "
           f"{n} stamps in {line_s * 1e3:.1f} ms ({n / line_s:.0f} stamps/s), traced "
           f"again: {line_ops} device operations ({line_ops / n:.1f} a stamp, "
@@ -3210,16 +3627,11 @@ def drive_tools_path(dev, tmp, card):
     return counts
 
 
-# the tools path's stages that the card's route times without a trace
-TOOL_UNTRACED = ("undo to the start", "redo to the end", "save .pfe")
-
-
 def _tools_card_route(dev, src, root):
-    """The tools path's stages on the card (drive_tools_path): returns the
-    launch counts; each stage's [name, wall ms, parts]; the wall ms, busy
-    ms and device operations (kernels, copies, fills) by stage; the
-    seconds the traces' stop and read and the digests took; and a soft
-    brush line's stamps, untraced seconds and device operations traced."""
+    """The tools path's stages on the card (drive_tools_path), untraced:
+    returns the launch counts; each stage's [name, wall ms, parts]; the
+    wall ms by stage; the seconds the digests took; and a soft brush
+    line's stamps, untraced seconds and device operations traced."""
     import torch
 
     from paintfe_tpu_torch.core.history import HistoryManager
@@ -3228,12 +3640,12 @@ def _tools_card_route(dev, src, root):
     from paintfe_tpu_torch.tools import Brush
 
     h, w = UHD
-    busy_ms, device_ops, state, cache, stages = {}, {}, {}, {}, []
+    state, cache, stages = {}, {}, []
     _reset_counts()
-    proj, open_ms = _timed_stage(lambda: Project.open(src, device=dev), busy_ms)
+    proj, open_ms = _timed_stage(lambda: Project.open(src, device=dev), {})
     proj.history = HistoryManager(max_entries=100, memory_limit_bytes=64 << 30)
     stage_ms = {"open": open_ms}
-    overhead = {"traces": 0.0, "digests": 0.0}
+    digests_s = 0.0
     for name, fn in tool_stages(proj, state, dev, root / "out"):
         if name == "undo to the start":
             torch.cuda.synchronize()
@@ -3244,14 +3656,11 @@ def _tools_card_route(dev, src, root):
                                   f"{len(stages)} steps")
         elif name == "flatten":
             runs = _raster_runs(proj.canvas)
-        t0 = time.perf_counter()
-        n, ms = _timed_stage(fn, busy_ms, None if name in TOOL_UNTRACED else name,
-                             device_ops)
+        n, ms = _timed_stage(fn, {})
         t1 = time.perf_counter()
         stage_ms[name] = ms
         stages.append([name, ms, _tools_parts(proj, state, n, cache)])
-        overhead["traces"] += t1 - t0 - ms / 1e3
-        overhead["digests"] += time.perf_counter() - t1
+        digests_s += time.perf_counter() - t1
         if name == "undo to the start":
             diff = document_differences(proj.canvas, load_pfe(str(src)))
             if diff:
@@ -3293,8 +3702,7 @@ def _tools_card_route(dev, src, root):
     line_s = time.perf_counter() - t0
     line_ops = {}
     _timed_stage(line, {}, "line", line_ops)
-    return (counts, stages, stage_ms, busy_ms, device_ops, overhead,
-            (n, line_s, line_ops["line"]))
+    return counts, stages, stage_ms, digests_s, (n, line_s, line_ops["line"])
 
 
 # ---------------------------------------------------------------------------
@@ -3304,6 +3712,9 @@ def _tools_card_route(dev, src, root):
 
 # the text document's caption: an outline and a shadow of blur radius 6
 TEXT_SHADOW_BLUR = 6.0
+# the --animate APNG's 4K PNG frames (four until the multi-GPU path needed
+# the time), before the .pdn's
+ANIMATE_UHD_FRAMES = 2
 PDN_BLENDS = ("Normal", "Multiply", "Screen", "Overlay", "Additive", "Difference")
 
 
@@ -3328,8 +3739,8 @@ def _input_files(root, seed=41):
     whose rows cycle PNG filters 0-4, a 16-bit 4K TIFF with deflate and one
     with LZW (decoded in C++), a six-layer 4K .pdn and a 4K .pfe with a
     raster layer and a text layer (outline, and a shadow of blur radius
-    TEXT_SHADOW_BLUR); and for --animate four 8-bit 4K PNGs and three
-    1920x1080 ones (GIF palettes trained in C++)."""
+    TEXT_SHADOW_BLUR); and for --animate ANIMATE_UHD_FRAMES 8-bit 4K PNGs
+    and three 1920x1080 ones (GIF palettes trained in C++)."""
     import numpy as np
     from PIL import Image
 
@@ -3372,7 +3783,7 @@ def _input_files(root, seed=41):
                                                     TEXT_SHADOW_BLUR, 2.0)
     doc.layers.append(text)
     save_pfe(doc, str(root / "in" / "x0.pfe"))
-    for k in range(4):
+    for k in range(ANIMATE_UHD_FRAMES):
         Image.fromarray(_ramp(rng, h, w, 4, 255, 20 + k).astype(np.uint8), "RGBA").save(
             root / "anim" / f"a{k}.png", compress_level=1)
     for k in range(3):
@@ -3435,7 +3846,7 @@ def drive_inputs_path(dev, tmp):
     """The inputs path at 3840x2160: the headline script over 16-bit PNGs
     (rows of every PNG filter), 16-bit TIFFs, a six-layer .pdn and a .pfe
     with a text layer, through the serial CLI (-f png, and -f tiff on the
-    PNGs) and --shard (both); --animate to APNG over four 4K PNGs and the
+    PNGs) and --shard (both); --animate to APNG over two 4K PNGs and the
     .pdn, serially and under --shard, and to GIF at 1920x1080; one serial run
     under --trace-dir.  Every file of a CLI run must equal the same run's
     with --device cpu, byte for byte; K-blur and K-composite launch exactly
@@ -3498,7 +3909,7 @@ def drive_inputs_path(dev, tmp):
 
 
 def _drive_animate_and_trace(root, script):
-    """--animate to APNG over four 4K PNGs and the .pdn, serially (one
+    """--animate to APNG over ANIMATE_UHD_FRAMES 4K PNGs and the .pdn, serially (one
     K-blur a frame, one K-composite for the .pdn) and under --shard (one
     K-blur for the 4K bucket, one for the .pdn), equal files; GIF at
     1920x1080 both ways; then one serial run of the text document under
@@ -3509,7 +3920,8 @@ def _drive_animate_and_trace(root, script):
     ins = root / "in"
     anim_in = [str(root / "anim" / "*.png"), str(ins / "d0.pdn")]
     gif_in = [str(root / "gif" / "*.png")]
-    animations = {"apng serial": (anim_in, [], "a.png", (5, 1)),
+    n_apng = ANIMATE_UHD_FRAMES + 1
+    animations = {"apng serial": (anim_in, [], "a.png", (n_apng, 1)),
                   "apng shard": (anim_in, ["--shard"], "a_shard.png", (2, 1)),
                   "gif serial": (gif_in, [], "g.gif", (3, 0)),
                   "gif shard": (gif_in, ["--shard"], "g_shard.gif", (1, 0))}
@@ -3531,13 +3943,13 @@ def _drive_animate_and_trace(root, script):
                               f"K-composite {got[1]} times, expected {n_blur} and {n_comp}")
     from paintfe_tpu_torch.io.codecs import load_frames
 
-    for serial, shard, n in (("a.png", "a_shard.png", 5), ("g.gif", "g_shard.gif", 3)):
+    for serial, shard, n in (("a.png", "a_shard.png", n_apng), ("g.gif", "g_shard.gif", 3)):
         frames, _ = load_frames(root / serial)
         if len(frames) != n or (root / serial).read_bytes() != (root / shard).read_bytes():
             raise CheckFailed(f"inputs --animate: {shard} differs from {serial} "
                               f"({len(frames)} frames, expected {n})")
-    print("  ok  inputs --animate: APNG (5 frames) and GIF (3 frames) equal under --shard "
-          "and serially")
+    print(f"  ok  inputs --animate: APNG ({n_apng} frames) and GIF (3 frames) equal under "
+          "--shard and serially")
 
     # --trace-dir: the text document, serially
     c0 = _counts()

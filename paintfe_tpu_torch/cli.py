@@ -15,9 +15,11 @@ Paint.NET .pdn documents and RAW camera files (DNG, CR2, NEF/NRW, ARW,
 PEF, SRW, ORF, RW2/RWL), developed on `--device` on every route.
 `--animate OUT` writes every processed input as one frame of a GIF, APNG
 or WebP animation (with --shard too); `--trace-dir DIR` writes a
-torch.profiler trace of the serial run.
-
-Not yet ported: a multi-host launch (PAINTFE_COORDINATOR, rc 1).
+torch.profiler trace of the serial run.  A multi-process launch
+(PAINTFE_COORDINATOR, PAINTFE_NUM_PROCESSES, PAINTFE_PROCESS_ID; one
+process per host, parallel/distributed.py) runs the --shard path on each
+process's round-robin share of the inputs, and every process exits with
+the code the processes agree on.
 
     python -m paintfe_tpu_torch.cli -i 'docs/*.pfe' -s fx.rhai \\
         --output-dir out -f png --device cuda
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import glob as globlib
+import json
 import os
 import pathlib
 import sys
@@ -236,13 +239,6 @@ def run_one(input_path: pathlib.Path, output_path: pathlib.Path,
                           tiff_compression=tiff_compression)
 
 
-def _unported_option() -> Optional[str]:
-    """What of this launch the port does not run yet, or None."""
-    if os.environ.get("PAINTFE_COORDINATOR"):
-        return "multi-host batch (PAINTFE_COORDINATOR)"
-    return None
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -277,14 +273,33 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.animate:
         return _run_animate(inputs, args, script_source)
-    unported = _unported_option()
-    if unported:
-        print(f"error: {unported} is not yet ported to paintfe_tpu_torch",
-              file=sys.stderr)
-        return 1
-    if args.shard:
+    # The sharded path runs whenever --shard was asked for, or the process
+    # was launched as part of an explicitly wired multi-process job:
+    # without this, every process would run the same files, write the same
+    # outputs at once, and never agree on an exit code.
+    if args.shard or os.environ.get("PAINTFE_COORDINATOR"):
+        from paintfe_tpu_torch.parallel import distributed
         from paintfe_tpu_torch.parallel.batch import run_sharded_batch
 
+        try:
+            multi_process = distributed.maybe_initialize(verbose=args.verbose)
+        except (RuntimeError, ValueError) as e:  # partial wiring, bad address
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        if multi_process:
+            # each process takes its round-robin share of the inputs and
+            # runs it on its own cards; the exit code is agreed by all
+            inputs = distributed.shard_inputs(inputs)
+            if args.verbose:
+                print(f"[distributed] process {distributed.rank()} handles "
+                      f"{len(inputs)} input(s)")
+            rc = run_sharded_batch(inputs, args, fmt, script_source) if inputs else 0
+            if args.verbose:
+                from paintfe_tpu_torch.utils.cuda_build import launch_counts
+
+                print(f"[distributed] process {distributed.rank()} kernel launches: "
+                      f"{json.dumps(launch_counts())}")
+            return 0 if distributed.all_processes_ok(rc == 0) else 1
         return run_sharded_batch(inputs, args, fmt, script_source)
 
     from paintfe_tpu_torch.utils.profiling import StageTimer, trace

@@ -1,13 +1,13 @@
-"""Batched CLI runner on one device (paintfe_tpu.parallel.batch
-counterpart: `run_sharded_batch`, and `run_sharded_frames` for --shard
---animate).
+"""Sharded CLI batch runner (paintfe_tpu.parallel.batch counterpart:
+`run_sharded_batch`, and `run_sharded_frames` for --shard --animate).
 
 Strategy: trace the script's op chain once (pipeline.trace_script); bucket
 inputs by dimensions so each bucket is one [N, H, W, 4] batch; run each
-bucket through the chain on the device once FLUSH_AT images have gathered
-(and the remainder at the end); encode results behind the compute on a
-pool, or collect them as frames.  Scripts that touch pixels directly run
-per image, still with keep-going semantics.  Raster inputs load through
+bucket through the chain split over the device mesh (every card of this
+process for --device cuda, the CPU for --device cpu) once FLUSH_AT images
+have gathered (and the remainder at the end); encode results behind the
+compute on a pool, or collect them as frames.  Scripts that touch pixels
+directly run per image, still with keep-going semantics.  Raster inputs load through
 the u8 codec, as the JAX package's --shard loads them (a 16-bit input is
 PIL's 8-bit reading of it; a RAW camera file is developed on the run's
 device, in the decode-ahead threads); layered documents (.pfe, .pdn) take
@@ -98,10 +98,11 @@ def _trace(script_source: Optional[str], verbose: bool):
 def _run_buckets(inputs, script_source, plan, device, per_image, on_result, state):
     """Layered inputs go to per_image(idx) one by one; the others decode
     ahead (a bounded window), gather in shape buckets, and each bucket runs
-    as one batch on `device` once FLUSH_AT images have gathered, the rest
-    at the end.  on_result(idx, image) takes each processed image; a bucket
-    that fails retries its images with per_image, which reports each error
-    itself; an input that does not decode sets state["failed"]."""
+    as one batch over `device`'s mesh (run_batch: one launch a kernel per
+    mesh entry) once FLUSH_AT images have gathered, the rest at the end.
+    on_result(idx, image) takes each processed image; a bucket that fails
+    retries its images with per_image, which reports each error itself; an
+    input that does not decode sets state["failed"]."""
     from paintfe_tpu_torch.io import codecs
     from paintfe_tpu_torch.parallel.pipeline import NotVectorizable, run_batch, trace_script
     from paintfe_tpu_torch.parallel.prefetch import prefetch_images

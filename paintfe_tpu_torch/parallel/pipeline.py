@@ -1,13 +1,14 @@
 """Effect pipelines: a script's apply_* chain, traced once and run over a
-batch on one device (paintfe_tpu.parallel.pipeline counterpart).
+batch split over a device mesh (paintfe_tpu.parallel.pipeline
+counterpart).
 
 Scripts that never read individual pixels are pure op chains: record the
 op sequence once, compose it into one image->image function, and run it
-on a [N, H, W, 4] batch tensor (the batch dimension is written out; the
-JAX package vmaps).  _OP_TABLE holds the JAX package's ops, name for
-name; a trace that meets any other host function that touches pixels or
-the canvas (get_pixel, resize_image, ...) bails with NotVectorizable and
-the caller runs the script per image.
+on a [N, H, W, 4] batch tensor on each mesh entry (the batch dimension
+is written out; the JAX package vmaps).  _OP_TABLE holds the JAX
+package's ops, name for name; a trace that meets any other host function
+that touches pixels or the canvas (get_pixel, resize_image, ...) bails
+with NotVectorizable and the caller runs the script per image.
 """
 
 from __future__ import annotations
@@ -290,10 +291,28 @@ def compile_pipeline(ops: Sequence[PipelineOp]) -> Callable:
     return run
 
 
-def run_batch(images, ops: Sequence[PipelineOp], device) -> np.ndarray:
-    """Apply an op chain to a u8 [N, H, W, 4] batch (numpy or tensor) on
-    one device; returns the processed batch as a numpy array."""
+def run_batch(images, ops: Sequence[PipelineOp], mesh=None) -> np.ndarray:
+    """Apply an op chain to a u8 [N, H, W, 4] batch (numpy or tensor),
+    split over the mesh's 'batch' axis; returns the processed batch as a
+    numpy array.
+
+    N is padded with zero frames to a multiple of the mesh size; each
+    entry runs the chain on its contiguous slice on its device (queued
+    on every entry before any result is read, so distinct cards overlap),
+    and the slices are gathered in order.  `mesh` may also be a device
+    (parallel.mesh.as_mesh: "cuda" and None are this process's cards).
+    The images never interact, so no entry reads another's slice: the
+    path copies no halo."""
+    from paintfe_tpu_torch.parallel.mesh import as_mesh, batch_sharding, pad_batch
+
+    mesh = as_mesh(mesh)
     if not isinstance(images, torch.Tensor):
         images = torch.from_numpy(np.ascontiguousarray(images, np.uint8))
-    batch = images.to(device)
-    return compile_pipeline(ops)(batch).cpu().numpy()
+    n = images.shape[0]
+    pad = pad_batch(n, mesh) - n
+    if pad:
+        images = torch.cat([images, images.new_zeros((pad,) + images.shape[1:])])
+    chain = compile_pipeline(ops)
+    outs = [chain(block) for block in batch_sharding(mesh).place(images).flat]
+    outs = [o.cpu() for o in outs]
+    return (outs[0] if len(outs) == 1 else torch.cat(outs))[:n].numpy()

@@ -157,6 +157,7 @@ def check(rc: int, what: str):
 # One lock for every wrapper's launch count: `fn.launches += 1` is a read,
 # an add and a write, and the server's handler threads launch at once.
 LAUNCH_LOCK = threading.Lock()
+_LAUNCHED = {}  # id -> each wrapper that has counted a launch in this process
 
 
 def count_launch(wrapper):
@@ -164,3 +165,13 @@ def count_launch(wrapper):
     its launches; read a consistent set of counts under LAUNCH_LOCK."""
     with LAUNCH_LOCK:
         wrapper.launches += 1
+        _LAUNCHED[id(wrapper)] = wrapper
+
+
+def launch_counts() -> dict:
+    """The launch count of each kernel that has launched in this process,
+    by wrapper name (a CPU run launches none)."""
+    with LAUNCH_LOCK:
+        counts = {getattr(fn, "__name__", type(fn).__name__): fn.launches
+                  for fn in _LAUNCHED.values()}
+    return dict(sorted(counts.items()))

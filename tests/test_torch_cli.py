@@ -177,10 +177,17 @@ def test_layered_and_16_bit_inputs_report_not_yet_ported(inputs, capsys):
 
 
 def test_multi_host_launch_is_not_yet_ported(inputs, capsys, monkeypatch):
+    """A multi-process launch runs since the multi-GPU layer was ported
+    (tests/test_torch_distributed.py); a coordinator alone is partial
+    wiring, refused with rc 1 and the missing variables named."""
     monkeypatch.setenv("PAINTFE_COORDINATOR", "localhost:1234")
     assert tcli.main(["-i", str(inputs / "in0.png"), "--output-dir",
                       str(inputs / "o"), "--device", "cpu", "--shard"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" not in err
+    assert "partial multi-process wiring: missing PAINTFE_NUM_PROCESSES, " \
+        "PAINTFE_PROCESS_ID" in err
+    assert not (inputs / "o" / "in0.png").exists()
 
 
 def test_profile_prints_stage_times(inputs, capsys):
@@ -339,7 +346,7 @@ def test_text_layers_and_pdn_report_not_yet_ported(inputs, capsys, shard, monkey
     """Text layers and .pdn documents, once refused, now run through both
     CLIs to the same bytes; a malformed RAW input fails as a decode error
     (RAW is ported) beside an input that succeeds, and a multi-host launch
-    (PAINTFE_COORDINATOR) is still refused."""
+    wired by PAINTFE_COORDINATOR alone is refused as partial wiring."""
     import chip_smoke
     from paintfe_tpu.core import canvas as jcanvas
     from paintfe_tpu.io import pfe as jpfe
@@ -373,4 +380,5 @@ def test_text_layers_and_pdn_report_not_yet_ported(inputs, capsys, shard, monkey
     assert (inputs / "r" / "in0.png").exists()
     monkeypatch.setenv("PAINTFE_COORDINATOR", "localhost:1234")
     assert tcli.main(argv) == 1
-    assert "PAINTFE_COORDINATOR) is not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "partial multi-process wiring" in err and "not yet ported" not in err

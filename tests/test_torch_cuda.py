@@ -1353,3 +1353,90 @@ def test_double_buffer_with_card_produce_waits_on_nothing(dev):
     want = [torch.cat([kernels.gaussian_blur_plain(base, 1.0 + i), base.roll(i, 0)])
             .int().sum(dim=(0, 1)) for i in range(6)]
     assert all(torch.equal(a, w) for a, w in zip(acc, want)) and len(acc) == 6
+
+
+# -- the multi-GPU layer: spatial sharding on repeated card entries -----------
+
+
+def _spatial_case(dev, n, h, w):
+    """The spatial calls on an n-entry rows mesh of `dev` against the same
+    kernel on one device: (name, kernel wrapper, sharded, single, halo)."""
+    from paintfe_tpu_torch.core.composite import composite_stack_static
+    from paintfe_tpu_torch.parallel import spatial
+
+    img, ov = _img((h, w), 41, dev), _img((h, w), 42, dev)
+    stack = _img((5, h, w), 43, dev)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    sx = (xx + 3.0 * torch.sin(yy / 9.0) - 1.5).contiguous()
+    sy = (yy + 2.0 * torch.cos(xx / 7.0) + 0.75).contiguous()
+    mesh = spatial.rows_mesh([dev] * n)
+    modes, opac = (0, 8, 16, 3, 21), (1.0, 0.8, 0.5, 0.9, 0.7)
+    return mesh, [
+        ("chain", fused_chain_kernel, lambda: spatial.fused_chain_spatial(img, ov, mesh),
+         lambda: fused_chain_kernel(img, ov), 6),
+        ("median", kernels.median_kernel, lambda: spatial.median_spatial(img, 2, mesh),
+         lambda: kernels.median_kernel(img, 2), 2),
+        ("warp zero", warp_kernel.gather_bilinear_u8,
+         lambda: spatial.warp_spatial(img, sx, sy, "zero", mesh),
+         lambda: warp_kernel.gather_bilinear_u8(img, sx, sy, "zero"), 0),
+        ("warp clamp", warp_kernel.gather_bilinear_u8,
+         lambda: spatial.warp_spatial(img, sx, sy, "clamp", mesh),
+         lambda: warp_kernel.gather_bilinear_u8(img, sx, sy, "clamp"), 0),
+        ("composite", kernels.composite_stack_kernel,
+         lambda: spatial.composite_spatial(stack, modes, opac, mesh),
+         lambda: composite_stack_static(stack, modes, opac), 0),
+        ("blur", kernels.gaussian_blur_fused,
+         lambda: spatial.process_spatial(img, lambda x: kernels.gaussian_blur_fused(x, 3.0),
+                                         mesh, halo=9),
+         lambda: kernels.gaussian_blur_fused(img, 3.0), 9),
+    ]
+
+
+@pytest.mark.parametrize("n,h", [(2, 96), (3, 61), (8, 130)])
+def test_spatial_on_repeated_card_entries_equals_one_device(dev, n, h):
+    """Each spatial function on n entries of one card (ragged heights
+    included): one launch an entry, equal to the single-device kernel."""
+    from paintfe_tpu_torch.parallel import spatial
+
+    _, cases = _spatial_case(dev, n, h, 84)
+    for name, wrapper, sharded, single, r in cases:
+        want = single()
+        before = wrapper.launches
+        got = sharded()
+        torch.cuda.synchronize()
+        assert spatial.route(h, n, r) == "sharded", name
+        assert wrapper.launches == before + n, name
+        assert got.device == dev and torch.equal(got, want), name
+
+
+def test_spatial_single_device_route_and_grid_on_the_card(dev):
+    """Blocks shorter than the halo: one launch on the first entry; the
+    2x4 grid: each image once a rows entry; both equal to one device."""
+    from paintfe_tpu_torch.parallel import spatial
+
+    img, ov = _img((20, 64), 44, dev), _img((20, 64), 45, dev)
+    before = fused_chain_kernel.launches
+    out = spatial.fused_chain_spatial(img, ov, spatial.rows_mesh([dev] * 8))
+    assert fused_chain_kernel.launches == before + 1
+    assert torch.equal(out, fused_chain_kernel(img, ov))
+    imgs, ovs = _img((4, 61, 72), 46, dev), _img((4, 61, 72), 47, dev)
+    grid = spatial.grid_mesh(2, 4, [dev] * 8)
+    before = fused_chain_kernel.launches
+    out = spatial.fused_chain_grid(imgs, ovs, grid)
+    torch.cuda.synchronize()
+    assert fused_chain_kernel.launches == before + 16
+    assert torch.equal(out, torch.stack([fused_chain_kernel(imgs[i], ovs[i]) for i in range(4)]))
+
+
+def test_run_batch_over_repeated_card_entries_equals_the_cpu(dev):
+    """run_batch on a 3-entry mesh of the card: one K-blur launch an entry,
+    equal to the CPU run."""
+    from paintfe_tpu_torch.parallel.mesh import Mesh
+
+    ops = pipeline.trace_script("apply_blur(2.0); apply_sepia(0.5);")
+    images = np.random.default_rng(48).integers(0, 256, (4, 40, 56, 4), np.uint8)
+    before = kernels.gaussian_blur_fused.launches
+    got = pipeline.run_batch(images, ops, Mesh([dev] * 3, ("batch",)))
+    assert kernels.gaussian_blur_fused.launches == before + 3
+    assert np.array_equal(got, pipeline.run_batch(images, ops, "cpu"))

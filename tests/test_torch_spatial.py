@@ -1,0 +1,370 @@
+"""The port's spatial sharding (paintfe_tpu_torch.parallel.spatial) against
+the JAX package's (paintfe_tpu.parallel.spatial), case for case with
+tests/test_spatial.py: the JAX functions on conftest's eight forced CPU
+devices, the port on an 8-entry CPU mesh (torch has one CPU device, so
+the entries repeat it), tolerance 0.  Each port result is also held
+against the port's own single-device call.  (tests/test_spatial.py's
+4K case is marked slow there; chip_smoke.py runs the port at 16384x16384
+on the card.)
+
+The second half is the counterpart of tests/test_collective_evidence.py:
+the batch path and the compositor copy no halo, and a sharded call
+copies exactly 2(n - 1) blocks of r rows, counted by wrapping the port's
+_halo_extend.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from paintfe_tpu.core import fixtures
+from paintfe_tpu.ops import filters as jfilters
+from paintfe_tpu.parallel import spatial as jspatial
+from paintfe_tpu.parallel.pipeline import _bc_device as j_bc, _sepia_device as j_sepia
+from paintfe_tpu_torch.ops import filters as tfilters
+from paintfe_tpu_torch.ops import kernels as tkernels
+from paintfe_tpu_torch.ops import fused_chain as tchain
+from paintfe_tpu_torch.ops import warp_kernel as twarp
+from paintfe_tpu_torch.parallel import pipeline as tpipe
+from paintfe_tpu_torch.parallel import spatial as tspatial
+from paintfe_tpu_torch.parallel.mesh import Mesh
+
+CPU = torch.device("cpu")
+
+
+def _jmesh8():
+    return jspatial.rows_mesh(jax.devices()[:8])
+
+
+def _tmesh8():
+    return tspatial.rows_mesh([CPU] * 8)
+
+
+def _np(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _radius(sigma):
+    return len(tfilters.gaussian_kernel(float(sigma))) // 2
+
+
+@pytest.fixture
+def calls(monkeypatch):
+    """Counts each kernel's calls through the module attributes the spatial
+    functions import at call time (a CPU tensor takes the plain version,
+    which counts no launch)."""
+    counts = {}
+
+    def wrap(module, name):
+        fn = getattr(module, name)
+
+        def counted(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+        monkeypatch.setattr(module, name, counted)
+
+    wrap(tchain, "fused_chain_kernel")
+    wrap(tkernels, "median_kernel")
+    wrap(twarp, "gather_bilinear_u8")
+    wrap(tkernels, "composite_stack_kernel")
+    import paintfe_tpu_torch.core.composite as tcomp
+    monkeypatch.setattr(tcomp, "composite_stack_kernel", tkernels.composite_stack_kernel)
+    return counts
+
+
+@pytest.mark.parametrize("h,route", [(48, "single-device"), (96, "sharded")])
+def test_spatial_blur_matches_single_device(h, route):
+    """The JAX case (48 rows: blocks of 6 under the halo of 9, which XLA's
+    partitioner handles and the port routes to one device) and a height
+    whose blocks hold the halo."""
+    img = np.asarray(fixtures.test_gradient(64, h))
+    ref = np.asarray(jax.jit(lambda x: jfilters.gaussian_blur(x, 3.0))(img))
+    jout = np.asarray(jspatial.process_spatial(
+        img, lambda x: jfilters.gaussian_blur(x, 3.0), _jmesh8()))
+    fn = lambda x: tfilters.gaussian_blur(x, 3.0)  # noqa: E731
+    out = tspatial.process_spatial(img, fn, _tmesh8(), halo=_radius(3.0))
+    assert tspatial.route(h, 8, _radius(3.0)) == route
+    np.testing.assert_array_equal(jout, ref)
+    np.testing.assert_array_equal(_np(out), ref)
+    np.testing.assert_array_equal(_np(out), _np(fn(torch.from_numpy(img))))
+
+
+@pytest.mark.parametrize("w,h", [(61, 40), (40, 61)])
+def test_spatial_chain_and_ragged_height(w, h):
+    """The JAX case (test_checkerboard(61, 40): 40 rows of 61) and the
+    ragged height it names: H=61 not divisible by 8 -> edge-replicate pad
+    + crop."""
+    img = np.asarray(fixtures.test_checkerboard(w, h))
+
+    def jchain(x):
+        x = jfilters.gaussian_blur(x, 1.5)
+        x = j_bc(x, 10.0, 20.0)
+        return j_sepia(x, 0.5)
+
+    def tchain_fn(x):
+        x = tfilters.gaussian_blur(x, 1.5)
+        x = tpipe._bc_device(x, 10.0, 20.0)
+        return tpipe._sepia_device(x, 0.5)
+
+    ref = np.asarray(jax.jit(jchain)(img))
+    out = tspatial.process_spatial(img, tchain_fn, _tmesh8(), halo=_radius(1.5))
+    np.testing.assert_array_equal(np.asarray(jspatial.process_spatial(img, jchain, _jmesh8())),
+                                  ref)
+    np.testing.assert_array_equal(_np(out), ref)
+    assert out.shape == (h, w, 4)
+
+
+def test_process_spatial_needs_its_halo():
+    """The halo is keyword-only with no default (a missing halo is an error,
+    never a wrong image), and a block shorter than it takes the
+    single-device route."""
+    img = torch.from_numpy(np.asarray(fixtures.test_gradient(24, 16)))
+    fn = lambda x: tfilters.gaussian_blur(x, 3.0)  # noqa: E731
+    with pytest.raises(TypeError):
+        tspatial.process_spatial(img, fn, _tmesh8())  # noqa
+    with pytest.raises(ValueError, match="halo"):
+        tspatial.process_spatial(img, fn, _tmesh8(), halo=-1)
+    assert tspatial.route(16, 8, _radius(3.0)) == "single-device"
+    np.testing.assert_array_equal(_np(tspatial.process_spatial(img, fn, _tmesh8(),
+                                                               halo=_radius(3.0))),
+                                  _np(fn(img)))
+
+
+def test_composite_spatial_matches(calls):
+    from paintfe_tpu.core.composite import composite_stack_static as jcomposite
+    from paintfe_tpu_torch.core.composite import composite_stack_static as tcomposite
+
+    rng = np.random.default_rng(0)
+    layers = rng.integers(0, 256, (5, 61, 40, 4), np.uint8)
+    modes = (0, 8, 16, 3, 21)
+    opac = np.array([1.0, 0.8, 0.5, 0.9, 0.7], np.float32)
+    ref = np.asarray(jcomposite(layers, modes, opac))
+    np.testing.assert_array_equal(
+        np.asarray(jspatial.composite_spatial(layers, modes, opac, _jmesh8())), ref)
+    out = tspatial.composite_spatial(layers, modes, opac, _tmesh8())
+    np.testing.assert_array_equal(_np(out), ref)
+    np.testing.assert_array_equal(_np(tcomposite(torch.from_numpy(layers), modes, opac)), ref)
+    assert calls == {"composite_stack_kernel": 8 + 1}  # 8 blocks, then the whole
+
+
+def test_fused_chain_spatial_matches_single_device(calls):
+    from paintfe_tpu.ops.fused_chain import fused_chain as jfused
+
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (61, 80, 4), np.uint8)
+    ov = rng.integers(0, 256, (61, 80, 4), np.uint8)
+    ref = np.asarray(jax.jit(lambda a, b: jfused(a, b))(img, ov))
+    np.testing.assert_array_equal(np.asarray(jspatial.fused_chain_spatial(img, ov, _jmesh8())),
+                                  ref)
+    out = tspatial.fused_chain_spatial(img, ov, _tmesh8())
+    assert calls == {"fused_chain_kernel": 8}
+    np.testing.assert_array_equal(_np(out), ref)
+    single = tchain.fused_chain_kernel(torch.from_numpy(img), torch.from_numpy(ov))
+    np.testing.assert_array_equal(_np(single), ref)
+
+
+@pytest.mark.parametrize("h", [64, 61])
+def test_median_spatial_matches_single_device(h, calls):
+    from paintfe_tpu.ops.pallas_kernels import median_pallas
+
+    rng = np.random.default_rng(7 + h)
+    img = rng.integers(0, 256, (h, 40, 4), np.uint8)
+    ref = np.asarray(median_pallas(img, 2))
+    np.testing.assert_array_equal(np.asarray(jspatial.median_spatial(img, 2, _jmesh8())), ref)
+    out = tspatial.median_spatial(img, 2, _tmesh8())
+    assert calls == {"median_kernel": 8}
+    np.testing.assert_array_equal(_np(out), ref)
+    np.testing.assert_array_equal(_np(tkernels.median_kernel(torch.from_numpy(img), 2)), ref)
+
+
+def _swirl(h, w):
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    # swirl-ish field with out-of-bounds excursions at the corners
+    sx = xx + 3.0 * np.sin(yy / 9.0) - 1.5
+    sy = yy + 2.0 * np.cos(xx / 7.0) + 0.75
+    return sx, sy
+
+
+@pytest.mark.parametrize("mode", ["zero", "clamp"])
+def test_warp_spatial_matches_single_device(mode, calls):
+    from paintfe_tpu.ops.warp_kernel import gather_bilinear_u8 as jgather
+
+    rng = np.random.default_rng(9)
+    h, w = 61, 50
+    src = rng.integers(0, 256, (h, w, 4), np.uint8)
+    sx, sy = _swirl(h, w)
+    ref = np.asarray(jgather(src, sx, sy, mode=mode))
+    jout = jspatial.warp_spatial(src, sx, sy, mode=mode, mesh=_jmesh8())
+    np.testing.assert_array_equal(np.asarray(jout), ref)
+    out = tspatial.warp_spatial(src, sx, sy, mode=mode, mesh=_tmesh8())
+    assert calls == {"gather_bilinear_u8": 8}
+    np.testing.assert_array_equal(_np(out), ref)
+    single = twarp.gather_bilinear_u8(torch.from_numpy(src), torch.from_numpy(sx),
+                                      torch.from_numpy(sy), mode)
+    np.testing.assert_array_equal(_np(single), ref)
+
+
+def test_spatial_tiny_image_fallback(calls):
+    """Blocks shorter than the halo radius take the single-device route:
+    one kernel call on the first entry, equal to the JAX route."""
+    from paintfe_tpu.ops.fused_chain import fused_chain as jfused
+    from paintfe_tpu.ops.pallas_kernels import median_pallas
+
+    rng = np.random.default_rng(13)
+    img = rng.integers(0, 256, (20, 40, 4), np.uint8)  # 20/8 = 2.5 < r=6
+    ov = rng.integers(0, 256, (20, 40, 4), np.uint8)
+    ref = np.asarray(jax.jit(lambda a, b: jfused(a, b))(img, ov))
+    np.testing.assert_array_equal(np.asarray(jspatial.fused_chain_spatial(img, ov, _jmesh8())),
+                                  ref)
+    assert tspatial.route(20, 8, _radius(2.0)) == "single-device"
+    np.testing.assert_array_equal(_np(tspatial.fused_chain_spatial(img, ov, _tmesh8())), ref)
+    assert calls == {"fused_chain_kernel": 1}
+
+    # 12 rows pad to 16: blocks of 2 rows hold the halo of r=2, so both
+    # packages shard this one; 7 rows pad to 8, blocks of 1 < r=2: the
+    # single-device route
+    for h, shards in ((12, 8), (7, 1)):
+        calls.clear()
+        img2 = rng.integers(0, 256, (h, 40, 4), np.uint8)
+        ref2 = np.asarray(median_pallas(img2, 2))
+        np.testing.assert_array_equal(np.asarray(jspatial.median_spatial(img2, 2, _jmesh8())),
+                                      ref2)
+        np.testing.assert_array_equal(_np(tspatial.median_spatial(img2, 2, _tmesh8())), ref2)
+        assert calls == {"median_kernel": shards}
+
+
+@pytest.mark.parametrize("h", [64, 61])
+def test_fused_chain_grid_2d_mesh(h, calls):
+    from paintfe_tpu.ops.fused_chain import fused_chain as jfused
+
+    rng = np.random.default_rng(17 + h)
+    jmesh = jspatial.grid_mesh(2, 4, jax.devices()[:8])
+    tmesh = tspatial.grid_mesh(2, 4, [CPU] * 8)
+    assert tmesh.shape == {"batch": 2, "rows": 4}
+    imgs = rng.integers(0, 256, (4, h, 80, 4), np.uint8)
+    ovs = rng.integers(0, 256, (4, h, 80, 4), np.uint8)
+    ref = np.stack([np.asarray(jax.jit(lambda a, b: jfused(a, b))(imgs[i], ovs[i]))
+                    for i in range(4)])
+    np.testing.assert_array_equal(np.asarray(jspatial.fused_chain_grid(imgs, ovs, jmesh)), ref)
+    out = tspatial.fused_chain_grid(imgs, ovs, tmesh)
+    assert calls == {"fused_chain_kernel": 4 * 4}  # each image once per rows entry
+    np.testing.assert_array_equal(_np(out), ref)
+    with pytest.raises(ValueError, match="not divisible"):
+        tspatial.fused_chain_grid(imgs[:3], ovs[:3], tmesh)
+
+
+def test_fused_chain_spatial_zero_sigma():
+    """sigma=0 makes the blur a no-tap identity (halo radius 0): the sharded
+    path copies no halo and crops nothing."""
+    from paintfe_tpu.ops.fused_chain import fused_chain_kernel as jkernel
+
+    rng = np.random.default_rng(23)
+    img = rng.integers(0, 256, (64, 80, 4), np.uint8)
+    ov = rng.integers(0, 256, (64, 80, 4), np.uint8)
+    ref = np.asarray(jkernel(img, ov, sigma=0.0))
+    np.testing.assert_array_equal(
+        np.asarray(jspatial.fused_chain_spatial(img, ov, _jmesh8(), sigma=0.0)), ref)
+    np.testing.assert_array_equal(
+        _np(tspatial.fused_chain_spatial(img, ov, _tmesh8(), sigma=0.0)), ref)
+
+    jmesh = jspatial.grid_mesh(2, 4, jax.devices()[:8])
+    tmesh = tspatial.grid_mesh(2, 4, [CPU] * 8)
+    imgs = rng.integers(0, 256, (2, 64, 80, 4), np.uint8)
+    ovs = rng.integers(0, 256, (2, 64, 80, 4), np.uint8)
+    refs = np.stack([np.asarray(jkernel(imgs[i], ovs[i], sigma=0.0)) for i in range(2)])
+    np.testing.assert_array_equal(
+        np.asarray(jspatial.fused_chain_grid(imgs, ovs, jmesh, sigma=0.0)), refs)
+    np.testing.assert_array_equal(
+        _np(tspatial.fused_chain_grid(imgs, ovs, tmesh, sigma=0.0)), refs)
+
+
+def test_mesh_of_another_process_raises():
+    """Spatial sharding stays on this process's devices: an entry owned by
+    another process (a mesh across processes) is refused."""
+    mesh = Mesh([CPU] * 2, ("rows",), process_indices=[0, 1])
+    img = np.zeros((16, 8, 4), np.uint8)
+    with pytest.raises(ValueError, match="this process's devices"):
+        tspatial.median_spatial(img, 1, mesh)
+
+
+# -- the counterpart of tests/test_collective_evidence.py ----------------------
+
+
+@pytest.fixture
+def halos(monkeypatch):
+    """Wraps spatial._halo_extend: records, per call, how many neighbour
+    blocks of r rows it copied and the rows it returned."""
+    record = []
+    inner = tspatial._halo_extend
+
+    def counted(block, r, up, down, axis=0):
+        out = inner(block, r, up, down, axis)
+        assert out.shape[axis] == block.shape[axis] + 2 * r
+        record.append({"copied": (up is not None) + (down is not None), "r": r,
+                       "row_bytes": out.numel() // out.shape[axis] * out.element_size()})
+        return out
+    monkeypatch.setattr(tspatial, "_halo_extend", counted)
+    return record
+
+
+def test_batch_path_copies_no_halo(halos):
+    """The sharded CLI batch program: every image lies on one entry, so
+    run_batch on the 8-entry mesh calls no halo exchange."""
+    ops = [tpipe.PipelineOp("apply_blur", (1.5,)),
+           tpipe.PipelineOp("apply_brightness_contrast", (10.0, 20.0)),
+           tpipe.PipelineOp("apply_levels", (10.0, 245.0, 1.1)),
+           tpipe.PipelineOp("apply_sepia", (0.5,)),
+           tpipe.PipelineOp("apply_median", (1,))]
+    images = np.random.default_rng(1).integers(0, 256, (8, 32, 32, 4), np.uint8)
+    out = tpipe.run_batch(images, ops, Mesh([CPU] * 8, ("batch",)))
+    assert halos == []
+    np.testing.assert_array_equal(out, tpipe.run_batch(images, ops, "cpu"))
+
+
+def test_batch_compositor_copies_no_halo(halos):
+    rng = np.random.default_rng(2)
+    layers = rng.integers(0, 256, (3, 16, 16, 4), np.uint8)
+    tspatial.composite_spatial(layers, (0, 8, 16), (1.0, 0.8, 0.5), _tmesh8())
+    assert halos == []
+
+
+@pytest.mark.parametrize("sigma,w", [(2.0, 32), (4.0, 128)])
+def test_spatial_path_moves_exactly_the_halos(sigma, w, halos):
+    """fused_chain_spatial: the only copies between entries are the two
+    r-row halos of each interior boundary, 2 (n - 1) blocks of r rows in
+    all, u8 [r, W, 4] each, whatever the image height."""
+    r = _radius(sigma)
+    n = 8
+    for h in (8 * max(r, 8), 8 * max(r, 8) * 3):
+        halos.clear()
+        img = np.random.default_rng(h).integers(0, 256, (h, w, 4), np.uint8)
+        out = tspatial.fused_chain_spatial(img, img, _tmesh8(), sigma=sigma)
+        assert len(halos) == n
+        assert sum(c["copied"] for c in halos) == 2 * (n - 1)
+        assert all(c["r"] == r and c["row_bytes"] == w * 4 for c in halos)
+        assert sum(c["copied"] * c["r"] * c["row_bytes"] for c in halos) == \
+            2 * (n - 1) * r * w * 4
+        ref = tchain.fused_chain_kernel(torch.from_numpy(img), torch.from_numpy(img),
+                                        sigma=sigma)
+        np.testing.assert_array_equal(_np(out), _np(ref))
+
+
+def test_spatial_median_moves_exactly_the_halos(halos):
+    r = 2
+    img = np.random.default_rng(5).integers(0, 256, (64, 32, 4), np.uint8)
+    tspatial.median_spatial(img, r, _tmesh8())
+    assert sum(c["copied"] for c in halos) == 2 * 7
+    assert all(c["r"] == r and c["row_bytes"] == 32 * 4 for c in halos)
+
+
+def test_grid_moves_the_halos_along_rows_only(halos):
+    """fused_chain_grid on the 2x4 mesh: each 'batch' row of entries
+    exchanges its slabs' halos along 'rows' only: 2 x 2 (4 - 1) copies of
+    [b, r, W, 4]."""
+    rng = np.random.default_rng(29)
+    imgs = rng.integers(0, 256, (4, 64, 24, 4), np.uint8)
+    tspatial.fused_chain_grid(imgs, imgs, tspatial.grid_mesh(2, 4, [CPU] * 8))
+    assert len(halos) == 8
+    assert sum(c["copied"] for c in halos) == 2 * 2 * 3
+    assert all(c["r"] == _radius(2.0) for c in halos)

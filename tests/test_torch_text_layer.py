@@ -230,3 +230,48 @@ def test_ensure_text_layers_rasterized_matches_jax():
     ttl.ensure_text_layers_rasterized(tdoc, device="cpu")
     np.testing.assert_array_equal(tdoc.layers[1].pixels, np.asarray(jdoc.layers[1].pixels))
     np.testing.assert_array_equal(tdoc.composite(device="cpu"), np.asarray(jdoc.composite()))
+
+
+THREAD_ROUNDS = 48
+
+
+def test_text_layers_rasterised_from_two_threads_match_serial():
+    """Two different text layers rasterised from two threads at once share
+    ops/text_layer._load_font's cached PIL fonts (the server's handler
+    threads do so for text-layer jobs sent at once): each result, over
+    THREAD_ROUNDS rounds of two rasterisations a thread started together,
+    equals the same layer rasterised serially, byte for byte.  The switch
+    interval is cut to interleave the threads as often as the interpreter
+    lets them."""
+    import sys
+    import threading
+
+    a = _port(_case("multi_run"))
+    b = _port(_case("multi_block"))
+    style = b.blocks[0].runs[0].style
+    style.font_weight, style.font_size = 700, 18.0  # the cached face "multi_run" draws with
+    assert ttl._load_font("default", 18, True, False) is ttl._load_font("default", 18, True,
+                                                                        False)
+    want = {"a": a.rasterize(200, 160, device="cpu"), "b": b.rasterize(200, 160, device="cpu")}
+    got = {"a": [], "b": []}
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for _ in range(THREAD_ROUNDS):
+            start = threading.Barrier(2)
+
+            def run(key, data):
+                start.wait(timeout=30)
+                got[key] += [data.rasterize(200, 160, device="cpu") for _ in range(2)]
+
+            threads = [threading.Thread(target=run, args=(k, d)) for k, d in (("a", a), ("b", b))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+                assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    for key in ("a", "b"):
+        assert len(got[key]) == 2 * THREAD_ROUNDS
+        assert all(np.array_equal(g, want[key]) for g in got[key]), key

@@ -362,6 +362,28 @@ def test_launch_counter_is_thread_safe():
         assert stub.launches == 8000
 
 
+def test_launch_counts_name_each_counted_wrapper():
+    """launch_counts() (what a multi-process CLI run reports under -v) holds
+    every wrapper that counted a launch in this process, by name, at its
+    count; a wrapper that never launched is absent."""
+    from paintfe_tpu_torch.utils.cuda_build import count_launch, launch_counts
+
+    def probe_kernel_a():
+        count_launch(probe_kernel_a)
+
+    def probe_kernel_b():
+        count_launch(probe_kernel_b)
+
+    probe_kernel_a.launches = probe_kernel_b.launches = 0
+    assert "probe_kernel_a" not in launch_counts()
+    for _ in range(3):
+        probe_kernel_a()
+    counts = launch_counts()
+    assert counts["probe_kernel_a"] == 3 and "probe_kernel_b" not in counts
+    probe_kernel_b()
+    assert launch_counts()["probe_kernel_b"] == 1
+
+
 # --- DoubleBuffer on CUDA-stream items ----------------------------------------
 
 
