@@ -169,7 +169,18 @@ It builds the port's CUDA kernels from csrc/, then:
        the peak device memory; then the batch CLI in two processes wired
        by PAINTFE_COORDINATOR (gloo) on the headline --shard inputs, each
        file equal to the single-process run's, a corrupt input in process
-       1's share (both exit 1) and partial wiring (rc 1);
+       1's share (both exit 1) and partial wiring (rc 1); then the
+       cross-process phase: two processes wired the same way, each
+       holding four cuda:0 entries of one 8-entry global rows mesh and
+       making the same inputs from one seed, through every spatial call
+       at 16384x16384, fused_chain_grid over four 3840x2160 frames on
+       both 2-D layouts (a 'batch' row a process, and the rows across
+       both) and one call on the single-device route; process 0's result
+       byte-equal to the single-device kernel, process 1's None, one
+       launch an owned entry in each process (none in process 1 on the
+       single-device route); each call's wall time against one process
+       on 8 entries, the bytes and seconds of the gather, each process's
+       peak device memory;
      - gaussian_blur_pallas, K-pass's one entry point (no CLI path calls
        it), on a flattened 3840x2160 result: exactly two K-pass launches
        and no other kernel;
@@ -199,6 +210,12 @@ check exits non-zero before that line.  It imports nothing of JAX.
 runs only the timed cases of step 4 and the flatten of one 3840x2160
 document, and prints them as one JSON line: run from two checkouts in
 turns, it compares two versions of the package on one card.
+
+    python3 chip_smoke.py --spatial-process DIR
+
+is one process of the cross-process phase (spatial_process); the smoke
+starts two, wired by PAINTFE_COORDINATOR / PAINTFE_NUM_PROCESSES /
+PAINTFE_PROCESS_ID.
 """
 
 from __future__ import annotations
@@ -1087,8 +1104,9 @@ def _check_launched(tag, counts, names):
 
 def drive_main_paths(dev, gen, tmp, card):
     """The main paths (headline, spatial, layered, effects, inputs,
-    document, menu, raw, tools, server, multigpu) and K-pass's entry call,
-    each with launch counts from 0.
+    document, menu, raw, tools, server, multigpu with its cross-process
+    phase) and K-pass's entry call, each with launch counts from 0 (the
+    cross-process phase's in its own processes).
     Returns each phase's launch counts, by phase."""
     import torch
 
@@ -1172,15 +1190,17 @@ def drive_main_paths(dev, gen, tmp, card):
                                            "gather_bilinear_u8", "composite_stack_kernel"))
 
     with _section("multigpu path"):
-        multigpu = drive_multigpu_path(dev, tmp, card)
-        _check_launched("multigpu", multigpu, ("gaussian_blur_fused", "median_kernel",
-                                               "gather_bilinear_u8", "composite_stack_kernel",
-                                               "fused_chain_kernel"))
+        multigpu, processes = drive_multigpu_path(dev, tmp, card)
+        for tag, counts in (("multigpu", multigpu), ("multigpu processes", processes)):
+            _check_launched(tag, counts, ("gaussian_blur_fused", "median_kernel",
+                                          "gather_bilinear_u8", "composite_stack_kernel",
+                                          "fused_chain_kernel"))
 
     entry = drive_blur_pass_entry(dev, tmp / "layered" / "out_serial" / "d0.png")
     return {"headline": headline, "spatial": spatial, "layered": layered,
             "effects": effects, "inputs": inputs, "document": document, "menu": menu,
             "raw": raw, "tools": tools, "server": server, "multigpu": multigpu,
+            "multigpu processes": processes,
             "gaussian_blur_pallas entry call": entry}
 
 
@@ -1764,8 +1784,11 @@ def drive_multigpu_path(dev, tmp, card):
       on the grid), the single-device route once;
     - after the counted window: each call's wall time sharded and on one
       device, the peak device memory and the halo rows copied;
-    - the multi-process CLI (_multiprocess_cli).
-    Returns the launch counts of the sharded calls."""
+    - the multi-process CLI (_multiprocess_cli);
+    - the cross-process phase (_spatial_processes): every spatial call on
+      one mesh of two processes, each counting its own launches.
+    Returns the launch counts of the sharded calls, and those of the
+    cross-process phase summed over its processes."""
     import torch
 
     from paintfe_tpu_torch.ops.fused_chain import fused_chain, fused_chain_kernel
@@ -1856,12 +1879,15 @@ def drive_multigpu_path(dev, tmp, card):
           f"{UHD[1]}x{UHD[0] - 1} and one single-device route, each byte-equal to the "
           "single-device kernel with exact launches")
 
-    # times, outside the counted window
+    # times, outside the counted window; the 8-entry and grid times are the
+    # cross-process phase's one-process comparison
+    one_process_ms = {}
     for name, (kernel, sharded, single, r, _) in calls.items():
         one = _wall_ms(single, MULTIGPU_TIMED_RUNS)
         parts = []
         for n, mesh in meshes.items():
             ms = _wall_ms(lambda: sharded(mesh), MULTIGPU_TIMED_RUNS)
+            one_process_ms[name] = (ms, f"{n} entries")
             halo_rows = 2 * (n - 1) * r
             parts.append(f"n={n} {spatial.route(h, n, r)} {ms:.3f} ms ({ms / one:.2f}x), "
                          f"halo {halo_rows} rows / {halo_rows * w * 4} B")
@@ -1877,10 +1903,17 @@ def drive_multigpu_path(dev, tmp, card):
           f"{grid_halo * UHD[1] * 4} B [card: {card}]")
     print(f"  multigpu peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"[card: {card}]")
-    del canvas, ov, stack, sx, sy, refs, frames, frame_ovs, frame_refs, extra_refs
+    one_process_ms.update({f"fused_chain_grid {layout[0]}x{layout[1]}":
+                           (grid_ms, f"the {nb}x{nr} grid") for layout in SPATIAL_LAYOUTS})
+    # the calls' closures (and the loops' last ones) hold the inputs too: free
+    # them all before the processes start
+    del calls, sharded, single, plain_rows, canvas, ov, stack, sx, sy, refs
+    del frames, frame_ovs, frame_refs, extra_refs, ragged, ragged_ov, tiny, tiny_ov
     torch.cuda.empty_cache()
     _multiprocess_cli(tmp, card)
-    return counts
+    print(f"  multigpu processes: the parent holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB of device memory, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    return counts, _spatial_processes(tmp, card, one_process_ms)
 
 
 def _free_port():
@@ -1891,20 +1924,21 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _cli_processes(argv, root, wiring):
-    """`python -m paintfe_tpu_torch.cli argv` in one process a wiring (a
-    dict of environment variables, or None for none), all started
-    together; returns [(exit code, stdout, stderr)] and the wall seconds
-    until the last ended.  Every process is ended before this returns."""
+def _processes(args, root, wiring):
+    """`python args` in one process a wiring (a dict of environment
+    variables, or None for none), all started together; returns [(exit
+    code, stdout, stderr)] and the wall seconds until the last ended.
+    Every process is ended before this returns, also one that outlives
+    600 s."""
     here = pathlib.Path(__file__).resolve().parent
     base = dict(os.environ)
     base["PYTHONPATH"] = os.pathsep.join(filter(None, [str(here), base.get("PYTHONPATH")]))
     for name in ("PAINTFE_COORDINATOR", "PAINTFE_NUM_PROCESSES", "PAINTFE_PROCESS_ID"):
         base.pop(name, None)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-m", "paintfe_tpu_torch.cli", *argv],
-                              cwd=root, env=dict(base, **(env or {})), stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for env in wiring]
+    procs = [subprocess.Popen([sys.executable, *args], cwd=root, env=dict(base, **(env or {})),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for env in wiring]
     try:
         outs = [p.communicate(timeout=600) for p in procs]
         results = [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
@@ -1914,6 +1948,19 @@ def _cli_processes(argv, root, wiring):
                 p.kill()
                 p.wait()
     return results, time.perf_counter() - t0
+
+
+def _cli_processes(argv, root, wiring):
+    """`python -m paintfe_tpu_torch.cli argv` in one process a wiring
+    (_processes)."""
+    return _processes(["-m", "paintfe_tpu_torch.cli", *argv], root, wiring)
+
+
+def _wired(n):
+    """The environments of n processes of one job on this machine."""
+    port = _free_port()
+    return [{"PAINTFE_COORDINATOR": f"localhost:{port}", "PAINTFE_NUM_PROCESSES": str(n),
+             "PAINTFE_PROCESS_ID": str(k)} for k in range(n)]
 
 
 def _multiprocess_cli(tmp, card):
@@ -1936,13 +1983,8 @@ def _multiprocess_cli(tmp, card):
     argv = ["-i", str(src / "shard" / "*.png"), "-s", str(src / "fx.rhai"), "--shard",
             "-f", "png", "--device", "cuda", "-v"]
 
-    def wired(n):
-        port = _free_port()
-        return [{"PAINTFE_COORDINATOR": f"localhost:{port}", "PAINTFE_NUM_PROCESSES": str(n),
-                 "PAINTFE_PROCESS_ID": str(k)} for k in range(n)]
-
     one, one_s = _cli_processes(argv + ["--output-dir", str(root / "one")], root, [None])
-    two, two_s = _cli_processes(argv + ["--output-dir", str(root / "two")], root, wired(2))
+    two, two_s = _cli_processes(argv + ["--output-dir", str(root / "two")], root, _wired(2))
     for tag, results in (("one process", one), ("two processes", two)):
         for rc, out, err in results:
             if rc != 0:
@@ -1985,7 +2027,7 @@ def _multiprocess_cli(tmp, card):
                 "-f", "png", "--device", "cuda"]
     # the corrupt pair and a partially wired process, all started together
     partial = {"PAINTFE_COORDINATOR": f"localhost:{_free_port()}", "PAINTFE_NUM_PROCESSES": "2"}
-    results, _ = _cli_processes(bad_argv, root, wired(2) + [partial])
+    results, _ = _cli_processes(bad_argv, root, _wired(2) + [partial])
     corrupt = results[:2]
     if [rc for rc, *_ in corrupt] != [1, 1]:
         raise CheckFailed(f"multigpu CLI: a corrupt input in process 1's share gave exit "
@@ -1995,6 +2037,226 @@ def _multiprocess_cli(tmp, card):
         raise CheckFailed(f"multigpu CLI: partial wiring gave rc {rc}: {err[-1000:]}")
     print("  ok  multigpu CLI: a corrupt input in process 1's share -> both processes exit 1; "
           "partial wiring -> rc 1, " + err.strip().splitlines()[-1])
+
+
+# The cross-process phase of the multi-GPU path: SPATIAL_PROCESSES
+# processes on this machine, each holding SPATIAL_ENTRIES entries of
+# cuda:0 of one global rows mesh, all on the same whole inputs
+SPATIAL_PROCESSES = 2
+SPATIAL_ENTRIES = 4
+# fused_chain_grid's ('batch', 'rows') layouts of the global mesh: a
+# 'batch' row a process (halos inside a process), and every image's rows
+# across the processes; over SPATIAL_FRAMES 3840x2160 frames
+SPATIAL_LAYOUTS = ((SPATIAL_PROCESSES, SPATIAL_ENTRIES), (1, SPATIAL_PROCESSES * SPATIAL_ENTRIES))
+SPATIAL_FRAMES = 4
+
+
+def spatial_process(out_dir, dev=None, shape=MULTIGPU_CANVAS, frame=UHD,
+                    runs=MULTIGPU_TIMED_RUNS):
+    """One process of the cross-process phase (`chip_smoke.py
+    --spatial-process DIR`, wired by PAINTFE_COORDINATOR /
+    PAINTFE_NUM_PROCESSES / PAINTFE_PROCESS_ID): the same inputs as every
+    other process, from one seed an input, made on the card when a call
+    needs them and freed after; each spatial call on the global rows mesh
+    (or a 2-D layout of it) once with its launches counted, its result
+    held (in the process owning the mesh's first entry) to the
+    single-device kernel on the same input, then timed.  Writes
+    DIR/process{rank}.json: each call's launches, whether its result was
+    right (the whole result in the owner, None elsewhere), its wall ms
+    (median of `runs`, the processes started together at a barrier), the
+    bytes this process sent and received over gloo, its gather's seconds
+    (spatial._Gather.finish); the meshes' process indices and this
+    process's peak device memory."""
+    import torch
+    import torch.distributed as dist
+
+    from paintfe_tpu_torch.core.composite import composite_stack_static
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+    from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
+    from paintfe_tpu_torch.ops.kernels import gaussian_blur_fused, median_kernel
+    from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
+    from paintfe_tpu_torch.parallel import distributed, spatial
+
+    if not distributed.maybe_initialize():
+        raise CheckFailed("spatial process: not wired into a job")
+    me, dev = distributed.rank(), dev or torch.device("cuda", 0)
+    g = distributed.global_batch_mesh([dev] * SPATIAL_ENTRIES)
+    rows = spatial.rows_mesh(g)
+    layouts = {f"{nb}x{nr}": spatial.grid_mesh(nb, nr, g) for nb, nr in SPATIAL_LAYOUTS}
+    report = {"process": me, "rows": rows.process_indices.tolist(),
+              "default": spatial.rows_mesh().process_indices.tolist(),
+              "layouts": {k: m.process_indices.tolist() for k, m in layouts.items()},
+              "calls": {}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # what crosses processes: gloo's point-to-point bytes, and the gather's time
+    moved = {"sent": 0, "received": 0, "gather_s": 0.0}
+    for op, key in (("isend", "sent"), ("irecv", "received")):
+        def counted(t, *a, _fn=getattr(dist, op), _key=key, **k):
+            moved[_key] += t.numel() * t.element_size()
+            return _fn(t, *a, **k)
+        setattr(dist, op, counted)
+    finish = spatial._Gather.finish
+
+    def timed_finish(self, outs):
+        t0 = time.perf_counter()
+        try:
+            return finish(self, outs)
+        finally:
+            moved["gather_s"] += time.perf_counter() - t0
+    spatial._Gather.finish = timed_finish
+
+    def noise(seed, *size):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, 256, size + (4,), generator=gen, dtype=torch.uint8, device=dev)
+
+    def run(name, sharded, single):
+        dist.barrier()
+        moved.update(sent=0, received=0, gather_s=0.0)
+        out, launched = _launched(sharded)
+        entry = {"launches": launched, **moved}
+        if me == rows.process_indices.flat[0]:
+            want = single()
+            entry["right"] = (out is not None and out.shape == want.shape
+                              and bool(torch.equal(out, want)))
+            del want
+        else:
+            entry["right"] = out is None
+        del out
+        times = []
+        for _ in range(runs):
+            dist.barrier()
+            t0 = time.perf_counter()
+            sharded()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        entry["ms"] = statistics.median(times)
+        report["calls"][name] = entry
+        torch.cuda.empty_cache()
+
+    h, w = shape
+    r3 = len(gaussian_kernel(3.0)) // 2
+    canvas, ov = noise(91, h, w), noise(92, h, w)
+    ov[: h // 8, :, 3] = 0  # clear-alpha rows pass the base
+    run("fused_chain_spatial", lambda: spatial.fused_chain_spatial(canvas, ov, rows),
+        lambda: fused_chain_kernel(canvas, ov))
+    tiny, tiny_ov = canvas[:20, :frame[1]].contiguous(), ov[:20, :frame[1]].contiguous()
+    run("single-device route", lambda: spatial.fused_chain_spatial(tiny, tiny_ov, rows),
+        lambda: fused_chain_kernel(tiny, tiny_ov))
+    del ov, tiny, tiny_ov
+    run("median_spatial r=2", lambda: spatial.median_spatial(canvas, 2, rows),
+        lambda: median_kernel(canvas, 2))
+    run("process_spatial K-blur sigma=3",
+        lambda: spatial.process_spatial(canvas, lambda x: gaussian_blur_fused(x, 3.0), rows,
+                                        halo=r3),
+        lambda: gaussian_blur_fused(canvas, 3.0))
+    sx, sy = _swirl_field(h, w, dev)
+    for mode in ("zero", "clamp"):
+        run(f"warp_spatial {mode}", lambda: spatial.warp_spatial(canvas, sx, sy, mode, rows),
+            lambda: gather_bilinear_u8(canvas, sx, sy, mode))
+    del canvas, sx, sy
+    torch.cuda.empty_cache()
+    stack = noise(93, len(MULTIGPU_MODES), h, w)
+    run("composite_spatial",
+        lambda: spatial.composite_spatial(stack, MULTIGPU_MODES, MULTIGPU_OPACITIES, rows),
+        lambda: composite_stack_static(stack, MULTIGPU_MODES, MULTIGPU_OPACITIES))
+    del stack
+    torch.cuda.empty_cache()
+    frames = noise(94, SPATIAL_FRAMES, *frame)
+    frame_ovs = noise(95, SPATIAL_FRAMES, *frame)
+    for layout, mesh in layouts.items():
+        run(f"fused_chain_grid {layout}",
+            lambda: spatial.fused_chain_grid(frames, frame_ovs, mesh),
+            lambda: torch.stack([fused_chain_kernel(frames[i], frame_ovs[i])
+                                 for i in range(SPATIAL_FRAMES)]))
+    torch.cuda.synchronize()
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    report["imports_jax"] = "jax" in sys.modules or "paintfe_tpu" in sys.modules
+    pathlib.Path(out_dir, f"process{me}.json").write_text(json.dumps(report))
+    return 0
+
+
+def _spatial_launches(name, process, rows):
+    """The launches a call of the cross-process phase must make in
+    `process` (`rows`: the process of each entry of the rows mesh): one
+    an owned entry (an image an entry on a grid layout nb x nr: each
+    entry's slab holds SPATIAL_FRAMES / nb images); on the single-device
+    route one, in the process owning the first entry."""
+    kernel = ("median_kernel" if name.startswith("median") else
+              "gather_bilinear_u8" if name.startswith("warp") else
+              "composite_stack_kernel" if name.startswith("composite") else
+              "gaussian_blur_fused" if name.startswith("process_spatial") else
+              "fused_chain_kernel")
+    if name == "single-device route":
+        return {kernel: 1} if process == rows[0] else {}
+    per_image = 1
+    if name.startswith("fused_chain_grid"):
+        per_image = SPATIAL_FRAMES // int(name.split()[-1].split("x")[0])
+    return {kernel: rows.count(process) * per_image}
+
+
+def _spatial_processes(tmp, card, one_process_ms):
+    """The cross-process phase: spatial_process in SPATIAL_PROCESSES
+    processes; every one exits 0, every call right in every process (the
+    whole result, byte-equal to the single-device kernel, in process 0;
+    None elsewhere), with exact launches in each process.  Prints each
+    call's wall time against `one_process_ms` (the same call in one
+    process on 8 entries of the card, by name), the gather's bytes and
+    seconds, each process's peak device memory and the phase's seconds.
+    Returns the launches of the counted calls, summed over the
+    processes, by wrapper name (as _counts)."""
+    out = tmp / "spatial_processes"
+    out.mkdir()
+    here = pathlib.Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    results, wall = _processes([str(here / "chip_smoke.py"), "--spatial-process", str(out)],
+                               here, _wired(SPATIAL_PROCESSES))
+    for k, (rc, stdout, err) in enumerate(results):
+        if rc != 0:
+            raise CheckFailed(f"multigpu processes: process {k} exited {rc}\n"
+                              f"{stdout[-2000:]}{err[-3000:]}")
+    reports = [json.loads((out / f"process{k}.json").read_text())
+               for k in range(SPATIAL_PROCESSES)]
+    # the rows mesh: SPATIAL_ENTRIES entries a process in rank order, as
+    # rows_mesh() with no devices spans every process's cards
+    rows = [k for k in range(SPATIAL_PROCESSES) for _ in range(SPATIAL_ENTRIES)]
+    for r in reports:
+        default = r["default"]
+        if (r["rows"] != rows or default != sorted(default)
+                or set(default) != set(range(SPATIAL_PROCESSES)) or r["imports_jax"]):
+            raise CheckFailed(f"multigpu processes: process {r['process']}'s meshes "
+                              f"{r['rows']}, {default} or its imports (JAX: "
+                              f"{r['imports_jax']}) differ from the plan")
+    total = dict.fromkeys(KERNEL_SOURCES, 0)
+    for name in reports[0]["calls"]:
+        for k, report in enumerate(reports):
+            got = report["calls"][name]
+            want = _spatial_launches(name, k, rows)
+            if got["launches"] != want or not got["right"]:
+                raise CheckFailed(f"multigpu processes: {name} in process {k}: launched "
+                                  f"{got['launches']} (expected {want}), result "
+                                  f"{'right' if got['right'] else 'WRONG'}")
+            for kernel, n in got["launches"].items():
+                total[kernel] += n
+        owner, other = reports[0]["calls"][name], reports[1]["calls"][name]
+        one, on = one_process_ms.get(name, (None, None))
+        against = (f"one process on {on} {one:.3f} ms ({owner['ms'] / one:.2f}x)" if one
+                   else "the single-device route")
+        print(f"  {name}: {SPATIAL_PROCESSES} processes {owner['ms']:.3f} ms wall "
+              f"(process 0), {against}; gather {other['sent']} B sent by process 1, "
+              f"{owner['received']} B received by process 0, "
+              f"{other['gather_s']:.3f} / {owner['gather_s']:.3f} s in the gather "
+              f"(process 1 / 0) [card: {card}]")
+    print("  multigpu processes peak device memory: " + ", ".join(
+        f"process {r['process']} {r['peak_gib']:.2f} GiB" for r in reports)
+        + f" [card: {card}]")
+    print(f"  ok  multigpu processes: {len(reports[0]['calls'])} calls on a {len(rows)}-entry "
+          f"mesh of {SPATIAL_PROCESSES} processes x {SPATIAL_ENTRIES} entries, each result "
+          f"byte-equal to the single-device kernel in process 0 and None in process 1, exact "
+          f"launches in each ({total}); the phase {time.perf_counter() - t0:.1f} s "
+          f"({wall:.1f} s the processes) [card: {card}]")
+    return total
 
 
 def drive_blur_pass_entry(dev, png):
@@ -5286,6 +5548,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--cases"]:
         return print_cases()
+    if sys.argv[1:2] == ["--spatial-process"] and len(sys.argv) == 3:
+        return spatial_process(sys.argv[2])
     from paintfe_tpu_torch.parallel.batch import shutdown_encode_pool
     from paintfe_tpu_torch.utils.cuda_build import BUILD_INFO, load_library
 

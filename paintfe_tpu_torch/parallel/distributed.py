@@ -17,12 +17,18 @@ Wire-up is env-driven, so the CLI works unchanged on one host and under a
 launcher: PAINTFE_COORDINATOR (host:port of process 0's rendezvous),
 PAINTFE_NUM_PROCESSES, PAINTFE_PROCESS_ID.
 
-**Why gloo and not NCCL.**  The layer's only collectives are control
-plane, on CPU tensors: the exit-code flag (`all_processes_ok`) and the
-device lists (`global_batch_mesh`, `slice_mesh`).  Batch sharding needs no
-collective on the card.  NCCL also refuses two ranks on one card
-("Duplicate GPU detected"), and two processes sharing one card is a
-layout this layer must run (a host with one card).
+**Why gloo and not NCCL.**  The layer's collectives run on CPU tensors.
+Two are control plane: the exit-code flag (`all_processes_ok`) and the
+device lists (`global_batch_mesh`, `slice_mesh`).  The other is spatial
+sharding across processes (parallel/spatial.py): a check that every
+process makes the same call, and the gather of the row blocks' results
+to the process that owns the mesh's first entry, each block through a
+pinned host buffer (gloo's send and recv move CPU tensors only).  Batch
+sharding needs no collective on the card.  NCCL also refuses two ranks
+on one card ("Duplicate GPU detected"), and two processes sharing one
+card is a layout this layer must run (a host with one card).  A gather
+card to card on an NCCL group, one rank a card, would skip the host
+copies where each process has cards of its own.
 """
 
 from __future__ import annotations

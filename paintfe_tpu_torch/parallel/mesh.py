@@ -4,8 +4,8 @@ The reference is a single-process desktop app (SURVEY §2.9): its parallelism
 is rayon rows + wgpu workgroups.  The scaling axis here is the batch of
 images: a 1-D mesh ('batch',) over this process's cards, images split on
 the leading axis, each entry running the whole op chain on its slice.
-Within-image tiling (halo exchange for an image that spans cards) is
-parallel/spatial.py.
+Within-image tiling (halo exchange for an image that spans cards, on the
+cards of one process or of several) is parallel/spatial.py.
 
 A `Mesh` is an array of torch.device entries with axis names.  An entry
 may repeat a device: work on repeated entries of one card runs in turn on

@@ -5,17 +5,17 @@ Batch sharding (parallel/pipeline.py) covers the many-images case; this
 module covers the one-giant-image case (the reference clamps documents at
 256 Mpix — src/canvas/tiled_image.rs:14-26 — which exceeds one card's
 appetite for fused f32 intermediates).  The image's rows are split over a
-mesh of this process's cards ('rows'):
+mesh ('rows') whose entries may belong to several processes of a job
+(parallel/distributed.py):
 
 - **the row split**: H is padded by edge replication to a multiple of the
   'rows' size, and each mesh entry holds one block of hb rows on its
   device (a view where the image already lies there);
 - **the halo exchange** (`_halo_extend`): before a neighbourhood kernel,
   each block receives the last r rows of the block above and the first r
-  rows of the block below, copied device to device; the end blocks
-  replicate their own edge row, which is the single-device kernel's edge
-  clamp, so cropping r rows at each end of every block's result gives the
-  single-device bytes;
+  rows of the block below; the end blocks replicate their own edge row,
+  which is the single-device kernel's edge clamp, so cropping r rows at
+  each end of every block's result gives the single-device bytes;
 - **the per-block kernel calls**: each entry runs the same kernel as the
   single-device call on its (extended) block: K-chain, K-median, K-blur
   through a caller's `fn`, K-composite (pointwise: no halo) and K-warp
@@ -23,35 +23,68 @@ mesh of this process's cards ('rows'):
   Entries on one card run in turn on its current stream; entries on
   distinct cards overlap, since each launch goes to its tensor's card.
 
-The result is one tensor on the first entry's device.  (The JAX functions
-return a sharded array that np.asarray gathers.)  Where a block is
-shorter than the halo radius (one neighbour cannot fill the halo) the JAX
-functions run the single-device kernel, and so do these, on the first
-entry: `route` says which a call takes.
+**Across processes.**  As under JAX, where `jax.device_put` of one host
+value onto a global sharding takes the same whole input in every
+process, every process of the job calls with the same whole input and
+builds only its own entries' blocks, from its own copy.  A neighbour
+block on this process lends its halo rows device to device; the halo of
+a neighbour on another process is the same r rows of the local input,
+so no rows cross processes before the kernels.  Only the gather does:
+every other process copies its cropped results to pinned host buffers
+and sends them over gloo (`dist.isend`, one message a block, tagged with
+its entry), and the process that owns the mesh's first entry (the
+owner) posts one `dist.irecv` a remote block before it runs its own
+kernels, then uploads and joins them.  Block shapes follow from the
+call, so no sizes are exchanged.  Where the mesh names more than one
+process, every process of the job must make the same call: one
+`all_gather_object` of the calls' descriptions (shapes, dtype, radius
+or parameters, the mesh), before any rows move, raises in every process
+on a mismatch instead of leaving one blocked in a receive.
 
-A mesh whose entries belong to another process raises: a spatial mesh
-across processes needs halos over torch.distributed send/recv, which this
-module does not do.
+**Return values.**  The owner gets the whole result as one tensor on the
+mesh's first entry's device; every other process gets None.  (The JAX
+functions return a global array, whose addressable shards no process
+can make whole without a gather.)  Where a block is shorter than the
+halo radius (one neighbour cannot fill the halo) the JAX functions run
+the single-device kernel, and so do these, on the owner's first entry
+alone: `route` says which a call takes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from paintfe_tpu_torch.ops.kernels import as_u8_tensor as _u8
-from paintfe_tpu_torch.parallel.mesh import (Mesh, NamedSharding, batch_mesh,
-                                             replicated, to_device)
+from paintfe_tpu_torch.ops.kernels import as_u8_tensor as _u8, host_values
+from paintfe_tpu_torch.parallel.distributed import global_batch_mesh, rank, world_size
+from paintfe_tpu_torch.parallel.mesh import Mesh, NamedSharding, to_device
 
 
-def rows_mesh(devices: Optional[Sequence] = None) -> Mesh:
-    """1-D mesh over the row axis of a single image; by default this
-    process's cards (raises without a card).  Entries may repeat a
-    device."""
-    devices = list(devices) if devices is not None else list(batch_mesh().devices.flat)
-    return Mesh(devices, ("rows",))
+def _entries(devices) -> tuple:
+    """The entries a mesh is built from, and their processes: by default
+    every process's cards in rank order (global_batch_mesh: this process's
+    cards in a single process; raises without a card); a Mesh's entries
+    with its process indices; else the devices given, owned by this
+    process."""
+    if devices is None:
+        devices = global_batch_mesh()
+    if isinstance(devices, Mesh):
+        return list(devices.devices.flat), list(devices.process_indices.flat)
+    devices = list(devices)
+    return devices, [rank()] * len(devices)
+
+
+def rows_mesh(devices=None) -> Mesh:
+    """1-D mesh over the row axis of a single image: by default every
+    process's cards (jax.devices() is global too); `devices` may be a list
+    of devices of this process (entries may repeat a device) or a Mesh,
+    whose entries keep their processes, so rows_mesh(
+    distributed.global_batch_mesh(local)) spans the job."""
+    devices, procs = _entries(devices)
+    return Mesh(devices, ("rows",), procs)
 
 
 def rows_sharding(mesh: Mesh) -> NamedSharding:
@@ -59,16 +92,21 @@ def rows_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, ("rows", None, None))
 
 
-def grid_mesh(n_batch: int, n_rows: int,
-              devices: Optional[Sequence] = None) -> Mesh:
+def grid_mesh(n_batch: int, n_rows: int, devices=None) -> Mesh:
     """2-D mesh ('batch', 'rows'): data parallelism over images x spatial
     parallelism within each image — the layout for batches of canvases too
-    large for one card's fused-f32 appetite."""
-    devices = list(devices) if devices is not None else list(batch_mesh().devices.flat)
-    if len(devices) < n_batch * n_rows:
-        raise ValueError(f"need {n_batch * n_rows} devices, have {len(devices)}")
-    grid = np.array(devices[:n_batch * n_rows], dtype=object).reshape(n_batch, n_rows)
-    return Mesh(grid, ("batch", "rows"))
+    large for one card's fused-f32 appetite.  The first n_batch * n_rows
+    entries of `devices` (as rows_mesh takes them) fill it row by row, so
+    over global_batch_mesh(local), grid_mesh(processes, len(local)) gives
+    each process one 'batch' row (halos inside a process, only the gather
+    across) and grid_mesh(1, processes * len(local)) splits every image's
+    rows across processes."""
+    devices, procs = _entries(devices)
+    k = n_batch * n_rows
+    if len(devices) < k:
+        raise ValueError(f"need {k} devices, have {len(devices)}")
+    grid = np.array(devices[:k], dtype=object).reshape(n_batch, n_rows)
+    return Mesh(grid, ("batch", "rows"), np.reshape(procs[:k], (n_batch, n_rows)))
 
 
 def route(h: int, n: int, r: int) -> str:
@@ -79,19 +117,36 @@ def route(h: int, n: int, r: int) -> str:
     return "single-device" if (h + (-h) % n) // n < r else "sharded"
 
 
-def _local(mesh: Optional[Mesh]) -> Mesh:
-    from paintfe_tpu_torch.parallel.distributed import rank
-
+def _checked(mesh: Optional[Mesh], *call) -> Mesh:
+    """The mesh a spatial call runs on (rows_mesh() by default), checked:
+    every entry's process is one of the job's; where the mesh names more
+    than one process, every process of the job agrees on the call
+    (`call`: its name, shapes, dtype, radius or parameters; the mesh is
+    added), one all_gather_object before any rows move.  A mismatch
+    raises in every process."""
     mesh = mesh if mesh is not None else rows_mesh()
-    if (mesh.process_indices != rank()).any():
-        raise ValueError("spatial sharding runs on this process's devices only: "
-                         "a mesh across processes needs halos over "
-                         "torch.distributed send/recv, which is not ported")
+    procs = sorted(set(mesh.process_indices.ravel().tolist()))
+    if procs[0] < 0 or procs[-1] >= world_size():
+        raise ValueError(f"spatial: the mesh names processes {procs}, outside a job of "
+                         f"{world_size()} process(es)")
+    if len(procs) > 1:
+        mine = call + (mesh.axis_names, mesh.devices.shape,
+                       [str(d) for d in mesh.devices.flat], mesh.process_indices.ravel().tolist())
+        every = [None] * world_size()
+        dist.all_gather_object(every, mine)
+        if any(c != mine for c in every):
+            raise ValueError("spatial: the processes disagree on the call: "
+                             + "; ".join(f"process {p}: {c}" for p, c in enumerate(every)))
     return mesh
 
 
 def _first(mesh: Mesh) -> torch.device:
     return mesh.devices.flat[0]
+
+
+def _owner(mesh: Mesh) -> bool:
+    """Whether this process owns the mesh's first entry (and the result)."""
+    return int(mesh.process_indices.flat[0]) == rank()
 
 
 def _f32(x) -> torch.Tensor:
@@ -139,38 +194,113 @@ def _crop(t: torch.Tensor, r: int, axis: int = 0) -> torch.Tensor:
     return t.narrow(axis, r, t.shape[axis] - 2 * r) if r else t
 
 
-def _gather(parts, device: torch.device, h: int, axis: int = 0) -> torch.Tensor:
+def _join(parts, device: torch.device, h: int, axis: int = 0) -> torch.Tensor:
     """The blocks' results joined along `axis` on `device`, cropped to h."""
     out = torch.cat([to_device(p, device) for p in parts], dim=axis)
     return out.narrow(axis, 0, h) if out.shape[axis] != h else out
 
 
-def _neighbours(blocks, i):
-    return (blocks[i - 1] if i > 0 else None,
-            blocks[i + 1] if i < len(blocks) - 1 else None)
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous on the host, as gloo sends it: through a pinned
+    buffer from a card."""
+    if t.device.type == "cpu":
+        return t.contiguous()
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+class _Gather:
+    """The gather of every entry's block result (each of `shape`, u8) to
+    the owner, the process of the mesh's first entry.  Made before the
+    kernels run: the owner posts one irecv a block of another process
+    then, into pinned host buffers where the result goes to a card."""
+
+    def __init__(self, mesh: Mesh, shape):
+        self.procs = mesh.process_indices.ravel().tolist()
+        self.owner, self.first = self.procs[0], _first(mesh)
+        self.shape = tuple(shape)
+        self.recvs = {}
+        if rank() == self.owner:
+            pin = self.first.type == "cuda"
+            for i, p in enumerate(self.procs):
+                if p != self.owner:
+                    buf = torch.empty(self.shape, dtype=torch.uint8, pin_memory=pin)
+                    self.recvs[i] = (buf, dist.irecv(buf, src=p, tag=i))
+
+    def finish(self, outs: dict) -> Optional[list]:
+        """`outs`, this process's results by flat entry index: on the
+        owner, every entry's result in flat order, those of other
+        processes uploaded to the first entry's device; elsewhere the
+        results are sent to the owner, and None."""
+        for i, t in outs.items():
+            if tuple(t.shape) != self.shape or t.dtype != torch.uint8:
+                raise ValueError(f"spatial: entry {i}'s result is {t.dtype} "
+                                 f"{tuple(t.shape)}, expected u8 {self.shape}")
+        if rank() != self.owner:
+            sent = []  # (host buffer, its send): each buffer lives until its send ends
+            for i, t in outs.items():
+                host = _to_host(t)
+                sent.append((host, dist.isend(host, dst=self.owner, tag=i)))
+            for _, work in sent:
+                work.wait()
+            return None
+        for i, (buf, work) in self.recvs.items():
+            work.wait()
+            outs[i] = to_device(buf, self.first)
+        return [outs[i] for i in range(len(self.procs))]
+
+
+def _mine(mesh: Mesh) -> list:
+    """This process's entries: (flat index, device)."""
+    me = rank()
+    return [(i, d) for i, (d, p) in enumerate(zip(mesh.devices.flat,
+                                                  mesh.process_indices.flat)) if p == me]
+
+
+def _row_blocks(img: torch.Tensor, mesh: Mesh, r: int, fn: Callable,
+                overlay: Optional[torch.Tensor] = None, axis: int = 0) -> dict:
+    """fn over this process's entries' halo-extended blocks of the image,
+    edge-padded and split along `axis` over the 1-D mesh; with an
+    overlay, fn(block, overlay block) where the overlay is split the same
+    way and its halo rows are zeros (their results are cropped).  A halo
+    from an entry of this process is copied from its block; one from an
+    entry of another process is the same rows of `img`.  Returns each
+    result cropped by r rows at both ends of `axis`, by entry index."""
+    n = mesh.size
+    padded = _edge_pad(img, n, axis)
+    ov = _edge_pad(overlay, n, axis) if overlay is not None else None
+    hb = padded.shape[axis] // n
+
+    def rows(t, j):
+        return t.narrow(axis, j * hb, hb)
+
+    mine = _mine(mesh)
+    blocks = {j: to_device(rows(padded, j), d) for j, d in mine}
+    outs = {}
+    for j, d in mine:
+        args = [blocks[j]]
+        if r:
+            up = blocks.get(j - 1, rows(padded, j - 1)) if j > 0 else None
+            down = blocks.get(j + 1, rows(padded, j + 1)) if j < n - 1 else None
+            args = [_halo_extend(blocks[j], r, up, down, axis=axis)]
+        if ov is not None:
+            ov_block = to_device(rows(ov, j), d)
+            args.append(_zero_extend(ov_block, r, axis) if r else ov_block)
+        outs[j] = _crop(fn(*args), r, axis)
+    return outs
 
 
 def _run_rows(img: torch.Tensor, mesh: Mesh, r: int, fn: Callable,
-              overlay: Optional[torch.Tensor] = None, axis: int = 0) -> torch.Tensor:
-    """fn over each entry's halo-extended block of the image, edge-padded
-    and split along `axis` over the mesh's one axis; with an overlay,
-    fn(block, overlay block) where the overlay is split the same way and
-    its halo rows are zeros (their results are cropped).  Each result is
-    cropped by r rows at both ends of `axis`, and the results are
-    gathered and cropped to the image's extent on the first entry's
-    device."""
-    h = img.shape[axis]
-    sharding = NamedSharding(mesh, (None,) * axis + (mesh.axis_names[0],))
-    blocks = list(sharding.place(_edge_pad(img, mesh.size, axis)).flat)
-    ovs = (list(sharding.place(_edge_pad(overlay, mesh.size, axis)).flat)
-           if overlay is not None else None)
-    outs = []
-    for i, block in enumerate(blocks):
-        args = [_halo_extend(block, r, *_neighbours(blocks, i), axis=axis) if r else block]
-        if ovs is not None:
-            args.append(_zero_extend(ovs[i], r, axis) if r else ovs[i])
-        outs.append(_crop(fn(*args), r, axis))
-    return _gather(outs, _first(mesh), h, axis)
+              overlay: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """_row_blocks over the rows of the image, gathered and cropped to its
+    height on the owner; None elsewhere."""
+    h = img.shape[0]
+    gather = _Gather(mesh, (-(-h // mesh.size),) + tuple(img.shape[1:]))
+    parts = gather.finish(_row_blocks(img, mesh, r, fn, overlay))
+    return None if parts is None else _join(parts, _first(mesh), h)
+
+
+def _describe(t: torch.Tensor) -> tuple:
+    return tuple(t.shape), str(t.dtype)
 
 
 def process_spatial(img, fn: Callable, mesh: Optional[Mesh] = None, *, halo: int):
@@ -181,20 +311,21 @@ def process_spatial(img, fn: Callable, mesh: Optional[Mesh] = None, *, halo: int
     `halo` is how many rows fn reads beyond a block on each side: a blur's
     tap radius, or the sum of the radii along a chain.  The result equals
     fn(img) when fn reads at most `halo` rows on each side and clamps at
-    the image's edges, as every blur of the port does.  (The JAX function
-    leans on XLA's SPMD partitioner to insert the halos for any fn; torch
-    has no partitioner, so the caller states the halo.  It is keyword-only
-    with no default: a missing halo is an error, never a wrong image.)
-    Blocks shorter than `halo` take the single-device route: fn on the
-    whole image on the first entry.  Returns a tensor on the first entry's
-    device."""
-    mesh = _local(mesh)
+    the image's edges, as every blur of the port does, and returns u8 of
+    its input's shape.  (The JAX function leans on XLA's SPMD partitioner
+    to insert the halos for any fn; torch has no partitioner, so the
+    caller states the halo.  It is keyword-only with no default: a
+    missing halo is an error, never a wrong image.)  Blocks shorter than
+    `halo` take the single-device route: fn on the whole image on the
+    first entry.  Returns a tensor on the first entry's device in the
+    process that owns it, None in every other process."""
     r = int(halo)
     if r < 0:
         raise ValueError(f"process_spatial: halo {halo} < 0")
     img = _u8(img)
+    mesh = _checked(mesh, "process_spatial", _describe(img), r)
     if route(img.shape[0], mesh.size, r) == "single-device":
-        return fn(to_device(img, _first(mesh)))
+        return fn(to_device(img, _first(mesh))) if _owner(mesh) else None
     return _run_rows(img, mesh, r, fn)
 
 
@@ -202,19 +333,32 @@ def composite_spatial(layers, modes, opacities, mesh: Optional[Mesh] = None):
     """Flatten a layer stack whose rows are split over the mesh: each entry
     folds its [N, hb, W, 4] block with the static compositor (K-composite;
     pointwise, so no halo).  H is padded with zero rows, which are cropped.
-    `layers` is u8 [N, H, W, 4] (tensor or array)."""
+    `layers` is u8 [N, H, W, 4] (tensor or array).  Returns the flattened
+    image on the first entry's device in the process that owns it, None
+    in every other process."""
     from paintfe_tpu_torch.core.composite import composite_stack_static
 
-    mesh = _local(mesh)
     layers = _u8(layers)
+    mesh = _checked(mesh, "composite_spatial", _describe(layers),
+                    host_values(modes, np.int64), host_values(opacities, np.float32))
     h = layers.shape[1]
     pad = (-h) % mesh.size
     if pad:
         layers = torch.cat([layers, layers.new_zeros(
             (layers.shape[0], pad) + tuple(layers.shape[2:]))], dim=1)
-    blocks = NamedSharding(mesh, (None, "rows", None, None)).place(layers)
-    outs = [composite_stack_static(b, modes, opacities) for b in blocks.flat]
-    return _gather(outs, _first(mesh), h)
+    hb = layers.shape[1] // mesh.size
+    gather = _Gather(mesh, (hb,) + tuple(layers.shape[2:]))
+    outs = {i: composite_stack_static(to_device(layers.narrow(1, i * hb, hb), d),
+                                      modes, opacities)
+            for i, d in _mine(mesh)}
+    parts = gather.finish(outs)
+    return None if parts is None else _join(parts, _first(mesh), h)
+
+
+def _chain_radius(params) -> int:
+    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+
+    return (gaussian_kernel(float(params.get("sigma", 2.0))).shape[0] - 1) // 2
 
 
 def fused_chain_spatial(img, overlay, mesh: Optional[Mesh] = None, **params):
@@ -223,15 +367,18 @@ def fused_chain_spatial(img, overlay, mesh: Optional[Mesh] = None, **params):
     neighbours (r, the blur's tap radius), runs K-chain on it and crops —
     the shard, exchange-halos, compute-locally recipe applied to an image
     kernel.  The overlay's halo rows are zeros (their results are
-    cropped).  Equal to the single-device kernel, byte for byte."""
-    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+    cropped).  Equal to the single-device kernel, byte for byte, on the
+    first entry's device in the process that owns it; None in every
+    other process."""
     from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
 
-    mesh = _local(mesh)
-    r = (gaussian_kernel(float(params.get("sigma", 2.0))).shape[0] - 1) // 2
     img, overlay = _u8(img), _u8(overlay)
-    h = img.shape[0]
-    if route(h, mesh.size, r) == "single-device":
+    mesh = _checked(mesh, "fused_chain_spatial", _describe(img), _describe(overlay),
+                    sorted(params.items()))
+    r = _chain_radius(params)
+    if route(img.shape[0], mesh.size, r) == "single-device":
+        if not _owner(mesh):
+            return None
         first = _first(mesh)
         return fused_chain_kernel(to_device(img, first), to_device(overlay, first), **params)
     return _run_rows(img, mesh, r, lambda block, ov: fused_chain_kernel(block, ov, **params),
@@ -243,20 +390,23 @@ def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
     ('batch', 'rows') mesh: images split over 'batch', each image's rows
     over 'rows' with the halo exchange between 'rows' neighbours (the
     whole local batch slab in one copy), then K-chain once per local
-    image.  Equal to fused_chain_kernel per image on one device.  B must
-    divide by the batch axis."""
-    from paintfe_tpu_torch.ops.filters import gaussian_kernel
+    image.  Equal to fused_chain_kernel per image on one device, stacked
+    on the first entry's device in the process that owns it; None in
+    every other process.  B must divide by the batch axis."""
     from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
 
-    mesh = _local(mesh)
-    nb, nr = mesh.shape["batch"], mesh.shape["rows"]
-    r = (gaussian_kernel(float(params.get("sigma", 2.0))).shape[0] - 1) // 2
     imgs, overlays = _u8(imgs), _u8(overlays)
+    mesh = _checked(mesh, "fused_chain_grid", _describe(imgs), _describe(overlays),
+                    sorted(params.items()))
+    nb, nr = mesh.shape["batch"], mesh.shape["rows"]
+    r = _chain_radius(params)
     b, h = imgs.shape[0], imgs.shape[1]
     if b % nb != 0:
         raise ValueError(f"batch {b} not divisible by mesh batch axis {nb}")
     first = _first(mesh)
     if route(h, nr, r) == "single-device":
+        if not _owner(mesh):
+            return None
         return torch.stack([fused_chain_kernel(to_device(imgs[i], first),
                                                to_device(overlays[i], first), **params)
                             for i in range(b)])
@@ -266,48 +416,64 @@ def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
         return torch.stack([fused_chain_kernel(slab[j], ov[j], **params)
                             for j in range(slab.shape[0])])
 
-    return torch.cat([
-        to_device(_run_rows(imgs[k * per:(k + 1) * per],
-                            Mesh(mesh.devices[k], ("rows",), mesh.process_indices[k]),
-                            r, chain, overlays[k * per:(k + 1) * per], axis=1), first)
-        for k in range(nb)])
+    gather = _Gather(mesh, (per, -(-h // nr)) + tuple(imgs.shape[2:]))
+    outs = {}
+    for k in range(nb):
+        row = Mesh(mesh.devices[k], ("rows",), mesh.process_indices[k])
+        blocks = _row_blocks(imgs[k * per:(k + 1) * per], row, r, chain,
+                             overlays[k * per:(k + 1) * per], axis=1)
+        outs.update({k * nr + j: t for j, t in blocks.items()})
+    parts = gather.finish(outs)
+    if parts is None:
+        return None
+    return torch.cat([_join(parts[k * nr:(k + 1) * nr], first, h, axis=1) for k in range(nb)])
 
 
 def median_spatial(img, r: int, mesh: Optional[Mesh] = None):
     """Window median of one row-split image on the mesh: each entry runs
     K-median on its block extended by r halo rows and crops; equal to
-    ops/kernels.median_kernel on one device.  r <= 0, and blocks shorter
-    than r, take the single-device route (median_kernel on the first
-    entry, which refuses r < 1 as the port's K-median does)."""
+    ops/kernels.median_kernel on one device, on the first entry's device
+    in the process that owns it (None in every other process).  r <= 0,
+    and blocks shorter than r, take the single-device route
+    (median_kernel on the first entry, which refuses r < 1 as the port's
+    K-median does)."""
     from paintfe_tpu_torch.ops.kernels import median_kernel
 
-    mesh = _local(mesh)
     img = _u8(img)
     r = int(r)
+    mesh = _checked(mesh, "median_spatial", _describe(img), r)
     if r <= 0 or route(img.shape[0], mesh.size, r) == "single-device":
-        return median_kernel(to_device(img, _first(mesh)), r)
+        return median_kernel(to_device(img, _first(mesh)), r) if _owner(mesh) else None
     return _run_rows(img, mesh, r, lambda block: median_kernel(block, r))
 
 
 def warp_spatial(src, sx, sy, mode: str = "zero", mesh: Optional[Mesh] = None):
     """Bilinear warp gather (ops/warp_kernel.gather_bilinear_u8 semantics)
     with the coordinate field row-split over the mesh: the whole source on
-    every entry's device (a warp gathers from arbitrary rows), each entry
-    running K-warp on its rows of the field.
+    every entry's device (a warp gathers from arbitrary rows; each process
+    uploads its own copy to its entries' devices), each entry running
+    K-warp on its rows of the field.  Returns the u8 [H, W, 4] result on
+    the first entry's device in the process that owns it, None in every
+    other process.
 
-    Never returns None, unlike the JAX function, whose TPU planner may
-    find a field infeasible: K-warp gathers any field, so there is no
-    planner.  H is padded (by replicating the field's last row) to a
+    Never returns None for an infeasible field, unlike the JAX function,
+    whose TPU planner may find one: K-warp gathers any field, so there is
+    no planner.  H is padded (by replicating the field's last row) to a
     multiple of the mesh size, not of n times the Pallas tile height."""
     from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
 
-    mesh = _local(mesh)
     src, sx, sy = _u8(src), _f32(sx), _f32(sy)
-    h = sx.shape[0]
-    sources = replicated(mesh).place(src)
-    field = NamedSharding(mesh, ("rows", None))
-    sxs = field.place(_edge_pad(sx, mesh.size, 0))
-    sys_ = field.place(_edge_pad(sy, mesh.size, 0))
-    outs = [gather_bilinear_u8(s, x, y, mode)
-            for s, x, y in zip(sources.flat, sxs.flat, sys_.flat)]
-    return _gather(outs, _first(mesh), h)
+    mesh = _checked(mesh, "warp_spatial", _describe(src), _describe(sx), _describe(sy),
+                    str(mode))
+    h, w = sx.shape
+    n = mesh.size
+    mine = _mine(mesh)
+    sources = {d: to_device(src, d) for d in {d for _, d in mine}}  # one copy a device
+    sxp, syp = _edge_pad(sx, n, 0), _edge_pad(sy, n, 0)
+    hb = sxp.shape[0] // n
+    gather = _Gather(mesh, (hb, w, 4))
+    outs = {i: gather_bilinear_u8(sources[d], to_device(sxp.narrow(0, i * hb, hb), d),
+                                  to_device(syp.narrow(0, i * hb, hb), d), mode)
+            for i, d in mine}
+    parts = gather.finish(outs)
+    return None if parts is None else _join(parts, _first(mesh), h)

@@ -1440,3 +1440,91 @@ def test_run_batch_over_repeated_card_entries_equals_the_cpu(dev):
     got = pipeline.run_batch(images, ops, Mesh([dev] * 3, ("batch",)))
     assert kernels.gaussian_blur_fused.launches == before + 3
     assert np.array_equal(got, pipeline.run_batch(images, ops, "cpu"))
+
+
+_PAIR_WORKER = """
+import sys, torch
+from paintfe_tpu_torch.core.composite import composite_stack_static
+from paintfe_tpu_torch.ops import kernels, warp_kernel
+from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
+from paintfe_tpu_torch.parallel import distributed, spatial
+
+assert distributed.maybe_initialize()
+me, dev = distributed.rank(), torch.device("cuda", 0)
+g = distributed.global_batch_mesh([dev] * 4)
+rows = spatial.rows_mesh(g)
+gen = torch.Generator(device=dev).manual_seed(49)
+
+def img(*shape):
+    return torch.randint(0, 256, shape + (4,), generator=gen, dtype=torch.uint8, device=dev)
+
+a, b, stack, frames = img(61, 84), img(61, 84), img(5, 61, 84), img(4, 64, 72)
+yy, xx = torch.meshgrid(torch.arange(61, dtype=torch.float32, device=dev),
+                        torch.arange(84, dtype=torch.float32, device=dev), indexing="ij")
+sx = (xx + 3.0 * torch.sin(yy / 9.0) - 1.5).contiguous()
+sy = (yy + 2.0 * torch.cos(xx / 7.0) + 0.75).contiguous()
+modes, opac = (0, 8, 16, 3, 21), (1.0, 0.8, 0.5, 0.9, 0.7)
+one = lambda fn: lambda: torch.stack([fn(frames[i], frames[3 - i]) for i in range(4)])
+cases = [  # wrapper, cross-process call, single-device call, launches in each process
+    (fused_chain_kernel, lambda: spatial.fused_chain_spatial(a, b, rows),
+     lambda: fused_chain_kernel(a, b), (4, 4)),
+    (fused_chain_kernel, lambda: spatial.fused_chain_spatial(a[:20], b[:20], rows),
+     lambda: fused_chain_kernel(a[:20], b[:20]), (1, 0)),
+    (kernels.median_kernel, lambda: spatial.median_spatial(a, 2, rows),
+     lambda: kernels.median_kernel(a, 2), (4, 4)),
+    (warp_kernel.gather_bilinear_u8, lambda: spatial.warp_spatial(a, sx, sy, "clamp", rows),
+     lambda: warp_kernel.gather_bilinear_u8(a, sx, sy, "clamp"), (4, 4)),
+    (kernels.composite_stack_kernel, lambda: spatial.composite_spatial(stack, modes, opac, rows),
+     lambda: composite_stack_static(stack, modes, opac), (4, 4)),
+    (kernels.gaussian_blur_fused,
+     lambda: spatial.process_spatial(a, lambda x: kernels.gaussian_blur_fused(x, 1.5), rows,
+                                     halo=5), lambda: kernels.gaussian_blur_fused(a, 1.5), (4, 4)),
+    (fused_chain_kernel,
+     lambda: spatial.fused_chain_grid(frames, frames.flip(0), spatial.grid_mesh(2, 4, g)),
+     one(fused_chain_kernel), (8, 8)),
+    (fused_chain_kernel,
+     lambda: spatial.fused_chain_grid(frames, frames.flip(0), spatial.grid_mesh(1, 8, g)),
+     one(fused_chain_kernel), (16, 16)),
+]
+for k, (wrapper, cross, single, launches) in enumerate(cases):
+    before = wrapper.launches
+    out = cross()
+    torch.cuda.synchronize()
+    assert wrapper.launches - before == launches[me], (k, wrapper.launches - before)
+    assert (torch.equal(out, single()) and out.device == dev) if me == 0 else out is None, k
+assert "jax" not in sys.modules and "paintfe_tpu" not in sys.modules
+print("PAIR-OK", me)
+"""
+
+
+def test_spatial_across_two_processes_on_the_card(dev, tmp_path):
+    """Every spatial call on an 8-entry rows mesh split 4 + 4 over two gloo
+    processes sharing the card (and fused_chain_grid on both 2-D layouts):
+    process 0's result equals the single-device kernel, process 1 returns
+    None, each process launches once an owned entry (the single-device
+    route: once, in process 0)."""
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PAIR_WORKER], cwd=tmp_path, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PAINTFE_COORDINATOR=f"localhost:{port}", PAINTFE_NUM_PROCESSES="2",
+                 PAINTFE_PROCESS_ID=str(k),
+                 PYTHONPATH=os.pathsep.join(filter(None, [str(repo),
+                                                          os.environ.get("PYTHONPATH")]))))
+        for k in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"PAIR-OK {k}" in out, out[-3000:]

@@ -5,12 +5,14 @@ devices, the port on an 8-entry CPU mesh (torch has one CPU device, so
 the entries repeat it), tolerance 0.  Each port result is also held
 against the port's own single-device call.  (tests/test_spatial.py's
 4K case is marked slow there; chip_smoke.py runs the port at 16384x16384
-on the card.)
+on the card.)  A mesh naming a process the job does not have is refused;
+meshes across real processes: tests/test_torch_spatial_processes.py.
 
 The second half is the counterpart of tests/test_collective_evidence.py:
 the batch path and the compositor copy no halo, and a sharded call
 copies exactly 2(n - 1) blocks of r rows, counted by wrapping the port's
-_halo_extend.
+_halo_extend, also when the mesh is split over two processes (the halos
+across the boundary then come from each process's own input).
 """
 
 import jax
@@ -279,13 +281,30 @@ def test_fused_chain_spatial_zero_sigma():
         _np(tspatial.fused_chain_grid(imgs, ovs, tmesh, sigma=0.0)), refs)
 
 
-def test_mesh_of_another_process_raises():
-    """Spatial sharding stays on this process's devices: an entry owned by
-    another process (a mesh across processes) is refused."""
-    mesh = Mesh([CPU] * 2, ("rows",), process_indices=[0, 1])
+@pytest.mark.parametrize("call", ["fused_chain_spatial", "median_spatial", "warp_spatial",
+                                  "composite_spatial", "process_spatial", "fused_chain_grid"])
+@pytest.mark.parametrize("procs", [[0, 1], [0, -1]])
+def test_mesh_naming_a_process_outside_the_job_raises(call, procs):
+    """A mesh whose entries name a process the job does not have (here a
+    single process: index 1, or a negative index) is refused, by every
+    spatial call, before any work."""
+    cpu = torch.device("cpu")
     img = np.zeros((16, 8, 4), np.uint8)
-    with pytest.raises(ValueError, match="this process's devices"):
-        tspatial.median_spatial(img, 1, mesh)
+    mesh = Mesh([cpu] * 2, ("rows",), procs)
+    grid = Mesh([[cpu], [cpu]], ("batch", "rows"), [[p] for p in procs])
+    run = {
+        "fused_chain_spatial": lambda: tspatial.fused_chain_spatial(img, img, mesh),
+        "median_spatial": lambda: tspatial.median_spatial(img, 1, mesh),
+        "warp_spatial": lambda: tspatial.warp_spatial(img, np.zeros((16, 8), np.float32),
+                                                      np.zeros((16, 8), np.float32),
+                                                      mesh=mesh),
+        "composite_spatial": lambda: tspatial.composite_spatial(img[None], (0,), (1.0,), mesh),
+        "process_spatial": lambda: tspatial.process_spatial(img, lambda t: t, mesh, halo=0),
+        "fused_chain_grid": lambda: tspatial.fused_chain_grid(img[None].repeat(2, 0),
+                                                              img[None].repeat(2, 0), grid),
+    }[call]
+    with pytest.raises(ValueError, match=r"outside a job of 1 process"):
+        run()
 
 
 # -- the counterpart of tests/test_collective_evidence.py ----------------------
@@ -348,6 +367,40 @@ def test_spatial_path_moves_exactly_the_halos(sigma, w, halos):
         ref = tchain.fused_chain_kernel(torch.from_numpy(img), torch.from_numpy(img),
                                         sigma=sigma)
         np.testing.assert_array_equal(_np(out), _np(ref))
+
+
+@pytest.mark.parametrize("sigma,w", [(2.0, 32), (4.0, 128)])
+def test_cross_process_halos_come_from_the_local_input(sigma, w, monkeypatch):
+    """The counterpart of test_spatial_path_moves_exactly_the_halos for a
+    mesh split 4 + 4 over two processes: each process, acting as rank 0
+    and then 1, extends only its own four blocks; together still 2 (n - 1)
+    copies of r rows of u8 [W, 4].  The entries lie on "meta", so a halo
+    copied from a neighbour block comes from meta, and one whose
+    neighbour belongs to the other process comes from the local (CPU)
+    input: exactly one on each side of the boundary."""
+    r, n = _radius(sigma), 8
+    mesh = Mesh([torch.device("meta")] * n, ("rows",), [0] * 4 + [1] * 4)
+    img = torch.from_numpy(np.random.default_rng(w).integers(0, 256, (n * r * 3, w, 4),
+                                                             np.uint8))
+    record = []
+    inner = tspatial._halo_extend
+
+    def halo(block, r, up, down, axis=0):
+        record.append((r, [t.device.type for t in (up, down) if t is not None]))
+        return inner(block, r, up, down, axis)
+    monkeypatch.setattr(tspatial, "_halo_extend", halo)
+    sources = []
+    for me in (0, 1):
+        record.clear()
+        monkeypatch.setattr(tspatial, "rank", lambda me=me: me)
+        outs = tspatial._row_blocks(img, mesh, r, lambda b, ov: b, img)
+        assert sorted(outs) == list(range(4 * me, 4 * me + 4))
+        assert all(t.shape == (img.shape[0] // n, w, 4) for t in outs.values())
+        assert all(hr == r for hr, _ in record)
+        sources.append([s for _, s in record])
+    assert sources == [[["meta"], ["meta", "meta"], ["meta", "meta"], ["meta", "cpu"]],
+                       [["cpu", "meta"], ["meta", "meta"], ["meta", "meta"], ["meta"]]]
+    assert sum(len(s) for p in sources for s in p) == 2 * (n - 1)
 
 
 def test_spatial_median_moves_exactly_the_halos(halos):
