@@ -1528,3 +1528,132 @@ def test_spatial_across_two_processes_on_the_card(dev, tmp_path):
             p.kill()
     for k, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"PAIR-OK {k}" in out, out[-3000:]
+
+
+# -- the JAX suite's cases that reach a kernel (test_torch_script_api,
+# test_torch_experimental, test_torch_review_r5_parity, test_torch_cli_io),
+# on the card against the CPU route
+
+
+@pytest.mark.parametrize("source", ["apply_blur(2.0);",
+                                    "apply_blur(1.0);\napply_invert();\nset_pixel(0, 0, 1, 2, 3, 4);"])
+def test_script_api_blur_on_the_card_equals_the_cpu(dev, source):
+    from paintfe_tpu_torch.core import fixtures
+    from paintfe_tpu_torch.scripting import execute_script_sync
+
+    img = fixtures.test_gradient(64, 64)
+    before = kernels.gaussian_blur_fused.launches
+    card = execute_script_sync(source, img.copy(), 64, 64, None, device=dev)
+    assert kernels.gaussian_blur_fused.launches == before + 1
+    host = execute_script_sync(source, img.copy(), 64, 64, None, device="cpu")
+    assert np.array_equal(card[0], host[0]) and card[1:4] == host[1:4]
+
+
+def _adjusted_doc(fill, kind, opacity, **params):
+    from paintfe_tpu_torch.core import fixtures
+    from paintfe_tpu_torch.core.canvas import Canvas, Layer
+    from paintfe_tpu_torch.core.deep import AdjustmentKind, AdjustmentLayerData
+
+    c = Canvas.from_image(fixtures.solid(4, 4, fill))
+    adj = Layer.new(kind.lower(), 4, 4)
+    adj.content = "adjustment"
+    adj.adjustment = AdjustmentLayerData(kind=AdjustmentKind[kind], **params)
+    adj.opacity = opacity
+    c.layers.append(adj)
+    return c
+
+
+@pytest.mark.parametrize("fill,kind,opacity,params", [
+    ((10, 20, 30, 255), "INVERT", 1.0, {}),
+    ((128, 128, 128, 255), "INVERT", 0.5, {}),
+    ((50, 100, 200, 255), "EXPOSURE", 1.0, {"ev": 1.0}),
+    ((60, 90, 120, 255), "BRIGHTNESS_CONTRAST", 1.0, {"brightness": 10.0, "contrast": 5.0}),
+], ids=["invert", "invert_half_opacity", "exposure", "brightness_contrast"])
+def test_adjustment_layer_composite_on_the_card_equals_the_cpu(dev, fill, kind, opacity, params):
+    from paintfe_tpu_torch.io import deep_export
+
+    c = _adjusted_doc(fill, kind, opacity, **params)
+    before = kernels.composite_stack_kernel.launches
+    card = c.composite(device=dev)
+    assert kernels.composite_stack_kernel.launches == before + 1
+    assert np.array_equal(card, c.composite(device="cpu"))
+    a = deep_export.prepare_export_image(c, device=dev)
+    b = deep_export.prepare_export_image(c, device="cpu")
+    assert (a.kind, a.width, a.height) == (b.kind, b.width, b.height)
+    assert np.array_equal(a.data, b.data)
+
+
+def test_merge_down_of_a_text_layer_on_the_card_equals_the_cpu(dev):
+    from paintfe_tpu_torch.core.canvas import Canvas, Layer
+    from paintfe_tpu_torch.ops.canvas_ops import merge_down
+    from paintfe_tpu_torch.ops.text_layer import make_text_layer_data
+
+    docs = []
+    for device in (dev, "cpu"):
+        c = Canvas.new(64, 32, (255, 255, 255, 255))
+        top = Layer.new("text", 64, 32, (0, 0, 0, 0))
+        top.content = "text"
+        top.text_data = make_text_layer_data("Hi", 4, 4, size=16, color=(255, 0, 0, 255))
+        c.layers.append(top)
+        before = kernels.composite_stack_kernel.launches
+        merge_down(c, 1, device=device)
+        if device is dev:
+            assert kernels.composite_stack_kernel.launches == before + 1
+        docs.append(c)
+    assert len(docs[0].layers) == 1 and docs[0].layers[0].content == "raster"
+    assert np.array_equal(docs[0].layers[0].pixels, docs[1].layers[0].pixels)
+
+
+def test_device_cache_mask_bake_on_the_card_equals_the_cpu(dev):
+    from paintfe_tpu_torch.core.canvas import Canvas
+    from paintfe_tpu_torch.core.device import DeviceLayerCache, composite_device
+    from paintfe_tpu_torch.ops.canvas_ops import apply_layer_mask
+
+    out = []
+    for device in (dev, "cpu"):
+        c = Canvas.new(8, 8, (100, 100, 100, 255))
+        c.layers[0].mask = np.full((8, 8), 255, np.uint8)
+        cache = DeviceLayerCache(device=device)
+        before = composite_device(c, cache).cpu().numpy()
+        apply_layer_mask(c, 0)
+        launches = kernels.composite_stack_kernel.launches
+        after = composite_device(c, cache)
+        assert after.device.type == torch.device(device).type
+        if device is dev:
+            assert kernels.composite_stack_kernel.launches == launches + 1
+        out.append((before, cache.get(c.layers[0]).cpu().numpy(), after.cpu().numpy()))
+    for a, b in zip(*out):
+        assert np.array_equal(a, b)
+    assert out[0][1][..., 3].max() == 0, "cache served the stale upload"
+
+
+def test_cli_flatten_of_pdn_and_pfe_on_the_card_equals_the_cpu(dev, tmp_path):
+    """A .pdn in the reference fixture's layout (800x600, red Normal under
+    green Additive at 161) and a two-layer .pfe through the CLI: one
+    K-composite launch each, the same PNG bytes as the CPU route."""
+    import chip_smoke
+    from paintfe_tpu_torch import cli
+    from paintfe_tpu_torch.core import fixtures
+    from paintfe_tpu_torch.core.canvas import Canvas, Layer
+    from paintfe_tpu_torch.io.pfe import save_pfe
+
+    layers = []
+    for name, rgb, opacity, blend in (("Background", (255, 0, 0), 255, "Normal"),
+                                      ("Layer 2", (0, 255, 0), 161, "Additive")):
+        px = np.zeros((600, 800, 4), np.uint8)
+        px[...] = rgb + (255,)
+        layers.append(dict(name=name, pixels=px, visible=True, opacity=opacity, blend=blend))
+    (tmp_path / "doc.pdn").write_bytes(chip_smoke.pdn_bytes(layers, 800, 600))
+    c = Canvas.from_image(fixtures.test_checkerboard(70, 50))
+    top = Layer(name="top", pixels=fixtures.blend_test_foreground(70, 50))
+    top.blend_mode, top.opacity = BlendMode.MULTIPLY, 0.7
+    c.layers.append(top)
+    save_pfe(c, str(tmp_path / "doc.pfe"))
+    for src in ("doc.pdn", "doc.pfe"):
+        before = kernels.composite_stack_kernel.launches
+        assert cli.main(["-i", str(tmp_path / src), "-o", str(tmp_path / "card.png"),
+                         "-f", "png", "--device", "cuda"]) == 0
+        assert kernels.composite_stack_kernel.launches == before + 1
+        assert cli.main(["-i", str(tmp_path / src), "-o", str(tmp_path / "host.png"),
+                         "-f", "png", "--device", "cpu"]) == 0
+        assert (tmp_path / "card.png").read_bytes() == (tmp_path / "host.png").read_bytes(), src
