@@ -29,6 +29,7 @@ from paintfe_tpu_torch.parallel.pipeline import (_bc_device, _levels_device,
                                                  _sepia_device, bc_factor,
                                                  levels_lut)
 from paintfe_tpu_torch.utils.device import read_on_current_stream, upload_shared
+from paintfe_tpu_torch.utils.profiling import span
 
 f32 = np.float32
 
@@ -78,30 +79,36 @@ def fused_chain_kernel(img, overlay, *, sigma=2.0, brightness=10.0,
                        sepia_strength=0.5, blend_opacity=0.6):
     """One-kernel version of fused_chain (soft-light flatten only);
     bit-identical to it.  Counts its launches in
-    `fused_chain_kernel.launches`."""
+    `fused_chain_kernel.launches`.  On a card, spans `pfe.kchain.tables`
+    (the checks, the tail's parameters, the taps and the levels table,
+    with the upload a cache miss makes) and `pfe.kchain.launch` (the
+    output's allocation and the launch)."""
     if img.device.type == "cpu" and overlay.device.type == "cpu":
         return fused_chain(img, overlay, sigma=sigma, brightness=brightness,
                            contrast=contrast, black=black, white=white,
                            gamma=gamma, sepia_strength=sepia_strength,
                            blend_opacity=blend_opacity)
-    check_rgba_u8(img, "fused_chain_kernel", ndims=(3,))
-    check_rgba_u8(overlay, "fused_chain_kernel overlay", ndims=(3,))
-    if overlay.shape != img.shape or overlay.device != img.device:
-        raise ValueError("fused_chain_kernel: overlay must match the image's "
-                         "shape and device")
     from paintfe_tpu_torch.utils.cuda_build import check, count_launch, load_library
 
-    h, w = img.shape[:2]
-    out = torch.empty_like(img)
-    if h * w == 0:
-        return out
-    lib = load_library()
-    params = _tail_params(brightness, contrast, sepia_strength, blend_opacity)
-    device = img.device
-    with device_guard(device):
-        taps, nt = _chain_taps(device, float(sigma))
-        taps = read_on_current_stream(taps)
-        levels = read_on_current_stream(_levels_on(device, black, white, gamma))
+    with span("pfe.kchain.tables"):  # the argument checks, then each table
+        check_rgba_u8(img, "fused_chain_kernel", ndims=(3,))
+        check_rgba_u8(overlay, "fused_chain_kernel overlay", ndims=(3,))
+        if overlay.shape != img.shape or overlay.device != img.device:
+            raise ValueError("fused_chain_kernel: overlay must match the image's "
+                             "shape and device")
+        h, w = img.shape[:2]
+        if h * w == 0:
+            return torch.empty_like(img)
+        lib = load_library()
+        params = _tail_params(brightness, contrast, sepia_strength, blend_opacity)
+        device = img.device
+        guard = device_guard(device)  # made once, entered for the tables and the launch
+        with guard:
+            taps, nt = _chain_taps(device, float(sigma))
+            taps = read_on_current_stream(taps)
+            levels = read_on_current_stream(_levels_on(device, black, white, gamma))
+    with guard, span("pfe.kchain.launch"):
+        out = torch.empty_like(img)
         stream = launch_stream(device)
         r = nt // 2
         th = chain_tile_rows(r)
@@ -117,8 +124,8 @@ def fused_chain_kernel(img, overlay, *, sigma=2.0, brightness=10.0,
             rc = lib.pfe_chain_tail(blurred.data_ptr(), overlay.data_ptr(),
                                     out.data_ptr(), h, w, levels.data_ptr(),
                                     params.ctypes.data, stream)
-    check(rc, "fused_chain_kernel")
-    count_launch(fused_chain_kernel)
+        check(rc, "fused_chain_kernel")
+        count_launch(fused_chain_kernel)
     return out
 
 

@@ -31,6 +31,7 @@ import torch
 from paintfe_tpu_torch.core.blend import blend_u8
 from paintfe_tpu_torch.ops.filters import _oddeven_merge_network, gaussian_kernel
 from paintfe_tpu_torch.utils.device import read_on_current_stream, upload_shared
+from paintfe_tpu_torch.utils.profiling import span
 from paintfe_tpu_torch.utils.quant import round_u8
 
 # Tile geometry: TILE_W is csrc/blur_tile.cuh's kTileW.
@@ -383,13 +384,44 @@ def _check_plane(t: torch.Tensor, name: str, like: torch.Tensor):
 def composite_stack_kernel(layers, modes, opacities, conceal=None, init=None):
     """Fold u8 layers bottom-up over `init` (K-composite): the contract of
     composite_stack_plain, on the layers' device.  Stacks longer than
-    COMPOSITE_CHUNK layers fold in chunks, one launch each."""
-    layers = layer_list(layers)
-    if not layers:
-        raise ValueError("composite_stack_kernel: no layers")
-    first, init = layers[0], as_u8_tensor(init)
-    if first.device.type == "cpu":
+    COMPOSITE_CHUNK layers fold in chunks, one launch each.  Spans
+    `pfe.kcomposite.prepare` (the layer list; on a card, the host values,
+    the checks and each chunk's pointer arrays too) and, on a card,
+    `pfe.kcomposite.launch` (a chunk's output and launch)."""
+    with span("pfe.kcomposite.prepare"):
+        layers = layer_list(layers)
+        if not layers:
+            raise ValueError("composite_stack_kernel: no layers")
+        first, init = layers[0], as_u8_tensor(init)
+        cpu = first.device.type == "cpu"
+        chunks = None if cpu else _composite_chunks(layers, modes, opacities, conceal, init)
+    if cpu:
         return composite_stack_plain(layers, modes, opacities, conceal, init)
+    from paintfe_tpu_torch.utils.cuda_build import check, count_launch, load_library
+
+    h, w = first.shape[:2]
+    acc = init
+    if h * w == 0:
+        return torch.empty_like(first)
+    lib = load_library()
+    with device_guard(first.device):
+        stream = launch_stream(first.device)
+        for args in chunks:
+            with span("pfe.kcomposite.launch"):
+                out = torch.empty_like(first)
+                rc = lib.pfe_composite(*args, None if acc is None else acc.data_ptr(),
+                                       out.data_ptr(), h * w, stream)
+                check(rc, "composite_stack_kernel")
+                count_launch(composite_stack_kernel)
+            acc = out
+    return acc
+
+
+def _composite_chunks(layers, modes, opacities, conceal, init) -> list:
+    """The checked arguments of each K-composite launch, one chunk of at
+    most COMPOSITE_CHUNK layers each: (layer pointers, conceal pointers,
+    modes, opacities, count)."""
+    first = layers[0]
     modes = host_values(modes, np.int64)
     # clip_opacity for the whole stack in one numpy call
     opacities = np.clip(np.asarray(host_values(opacities, np.float32), np.float32),
@@ -410,31 +442,16 @@ def composite_stack_kernel(layers, modes, opacities, conceal=None, init=None):
     for m in masks:
         if m is not None:
             _check_plane(m, "conceal", first)
-    from paintfe_tpu_torch.utils.cuda_build import check, count_launch, load_library
-
-    h, w = first.shape[:2]
-    acc = init
-    if h * w == 0:
-        return torch.empty_like(first)
-    lib = load_library()
-    with device_guard(first.device):
-        stream = launch_stream(first.device)
-        for s in range(0, len(layers), COMPOSITE_CHUNK):
-            e = min(s + COMPOSITE_CHUNK, len(layers))
-            n = e - s
-            out = torch.empty_like(first)
-            ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in layers[s:e]])
-            cptrs = (ctypes.c_void_p * n)(
-                *[None if m is None else m.data_ptr() for m in masks[s:e]])
-            rc = lib.pfe_composite(
-                ptrs, cptrs, (ctypes.c_int * n)(*modes[s:e]),
-                (ctypes.c_float * n)(*opacities[s:e]), n,
-                None if acc is None else acc.data_ptr(), out.data_ptr(),
-                h * w, stream)
-            check(rc, "composite_stack_kernel")
-            count_launch(composite_stack_kernel)
-            acc = out
-    return acc
+    chunks = []
+    for s in range(0, len(layers), COMPOSITE_CHUNK):
+        e = min(s + COMPOSITE_CHUNK, len(layers))
+        n = e - s
+        chunks.append(((ctypes.c_void_p * n)(*[t.data_ptr() for t in layers[s:e]]),
+                       (ctypes.c_void_p * n)(*[None if m is None else m.data_ptr()
+                                               for m in masks[s:e]]),
+                       (ctypes.c_int * n)(*modes[s:e]),
+                       (ctypes.c_float * n)(*opacities[s:e]), n))
+    return chunks
 
 
 composite_stack_kernel.launches = 0

@@ -48,6 +48,17 @@ can make whole without a gather.)  Where a block is shorter than the
 halo radius (one neighbour cannot fill the halo) the JAX functions run
 the single-device kernel, and so do these, on the owner's first entry
 alone: `route` says which a call takes.
+
+**Spans and counters** (utils/profiling: spans only while a torch
+profiler records, as under the CLI's --trace-dir): `pfe.spatial.check`
+(the call's arguments and `_checked`), `pfe.spatial.scatter` (padding and
+the blocks' uploads), `pfe.spatial.halo`, `pfe.spatial.overlay` (the
+overlay's zero rows), `pfe.spatial.gather` and `pfe.spatial.join`; the
+kernels' own spans lie between them.  Each step but the check counts the
+bytes it copies in `spatial.copy_bytes.<step>`: what it writes into a
+new tensor (a cat's output, never the small rows that feed it), moves to
+another device or to the host, or receives from another process; a view,
+and a move to the device a tensor already lies on, count 0.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ import torch.distributed as dist
 from paintfe_tpu_torch.ops.kernels import as_u8_tensor as _u8, host_values
 from paintfe_tpu_torch.parallel.distributed import global_batch_mesh, rank, world_size
 from paintfe_tpu_torch.parallel.mesh import Mesh, NamedSharding, to_device
+from paintfe_tpu_torch.utils.profiling import count, span
 
 
 def _entries(devices) -> tuple:
@@ -155,14 +167,33 @@ def _f32(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32))
 
 
+def _copied(step: str, t: torch.Tensor) -> torch.Tensor:
+    """`t`, a tensor that `step` wrote, its bytes counted as that step's."""
+    count(f"spatial.copy_bytes.{step}", t.numel() * t.element_size())
+    return t
+
+
+def _moved(step: str, t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """to_device(t, device), its bytes counted as `step`'s where it moves."""
+    out = to_device(t, device)
+    return out if out is t else _copied(step, out)
+
+
+def _scatter(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` uploaded to `device` as a block (itself where it lies there)."""
+    with span("pfe.spatial.scatter"):
+        return _moved("scatter", t, device)
+
+
 def _edge_pad(x: torch.Tensor, n: int, axis: int) -> torch.Tensor:
     """Pad `axis` to a multiple of n by replicating its last row."""
     pad = (-x.shape[axis]) % n
     if not pad:
         return x
-    last = x.narrow(axis, x.shape[axis] - 1, 1)
-    return torch.cat([x, last.repeat(*[pad if d == axis else 1 for d in range(x.dim())])],
-                     dim=axis)
+    with span("pfe.spatial.scatter"):
+        last = x.narrow(axis, x.shape[axis] - 1, 1)
+        return _copied("scatter", torch.cat(
+            [x, last.repeat(*[pad if d == axis else 1 for d in range(x.dim())])], dim=axis))
 
 
 def _halo_extend(block: torch.Tensor, r: int, up: Optional[torch.Tensor],
@@ -172,22 +203,24 @@ def _halo_extend(block: torch.Tensor, r: int, up: Optional[torch.Tensor],
     `down` (the block below), each copied from its device; an end block
     (no neighbour) replicates its own edge row, the single-device edge
     clamp."""
-    reps = [r if d == axis else 1 for d in range(block.dim())]
-    n = block.shape[axis]
-    top = (to_device(up.narrow(axis, up.shape[axis] - r, r), block.device)
-           if up is not None else block.narrow(axis, 0, 1).repeat(*reps))
-    bottom = (to_device(down.narrow(axis, 0, r), block.device)
-              if down is not None else block.narrow(axis, n - 1, 1).repeat(*reps))
-    return torch.cat([top, block, bottom], dim=axis)
+    with span("pfe.spatial.halo"):
+        reps = [r if d == axis else 1 for d in range(block.dim())]
+        n = block.shape[axis]
+        top = (_moved("halo", up.narrow(axis, up.shape[axis] - r, r), block.device)
+               if up is not None else block.narrow(axis, 0, 1).repeat(*reps))
+        bottom = (_moved("halo", down.narrow(axis, 0, r), block.device)
+                  if down is not None else block.narrow(axis, n - 1, 1).repeat(*reps))
+        return _copied("halo", torch.cat([top, block, bottom], dim=axis))
 
 
 def _zero_extend(block: torch.Tensor, r: int, axis: int = 0) -> torch.Tensor:
     """`block` with r zero rows at each end of `axis` (the overlay's halo:
     the rows whose results are cropped)."""
-    shape = list(block.shape)
-    shape[axis] = r
-    zeros = block.new_zeros(shape)
-    return torch.cat([zeros, block, zeros], dim=axis)
+    with span("pfe.spatial.overlay"):
+        shape = list(block.shape)
+        shape[axis] = r
+        zeros = block.new_zeros(shape)
+        return _copied("overlay", torch.cat([zeros, block, zeros], dim=axis))
 
 
 def _crop(t: torch.Tensor, r: int, axis: int = 0) -> torch.Tensor:
@@ -196,7 +229,8 @@ def _crop(t: torch.Tensor, r: int, axis: int = 0) -> torch.Tensor:
 
 def _join(parts, device: torch.device, h: int, axis: int = 0) -> torch.Tensor:
     """The blocks' results joined along `axis` on `device`, cropped to h."""
-    out = torch.cat([to_device(p, device) for p in parts], dim=axis)
+    with span("pfe.spatial.join"):
+        out = _copied("join", torch.cat([_moved("join", p, device) for p in parts], dim=axis))
     return out.narrow(axis, 0, h) if out.shape[axis] != h else out
 
 
@@ -204,8 +238,9 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     """`t` contiguous on the host, as gloo sends it: through a pinned
     buffer from a card."""
     if t.device.type == "cpu":
-        return t.contiguous()
-    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+        host = t.contiguous()
+        return host if host is t else _copied("gather", host)
+    return _copied("gather", torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t))
 
 
 class _Gather:
@@ -221,10 +256,11 @@ class _Gather:
         self.recvs = {}
         if rank() == self.owner:
             pin = self.first.type == "cuda"
-            for i, p in enumerate(self.procs):
-                if p != self.owner:
-                    buf = torch.empty(self.shape, dtype=torch.uint8, pin_memory=pin)
-                    self.recvs[i] = (buf, dist.irecv(buf, src=p, tag=i))
+            with span("pfe.spatial.gather"):
+                for i, p in enumerate(self.procs):
+                    if p != self.owner:
+                        buf = torch.empty(self.shape, dtype=torch.uint8, pin_memory=pin)
+                        self.recvs[i] = (buf, dist.irecv(buf, src=p, tag=i))
 
     def finish(self, outs: dict) -> Optional[list]:
         """`outs`, this process's results by flat entry index: on the
@@ -235,18 +271,19 @@ class _Gather:
             if tuple(t.shape) != self.shape or t.dtype != torch.uint8:
                 raise ValueError(f"spatial: entry {i}'s result is {t.dtype} "
                                  f"{tuple(t.shape)}, expected u8 {self.shape}")
-        if rank() != self.owner:
-            sent = []  # (host buffer, its send): each buffer lives until its send ends
-            for i, t in outs.items():
-                host = _to_host(t)
-                sent.append((host, dist.isend(host, dst=self.owner, tag=i)))
-            for _, work in sent:
+        with span("pfe.spatial.gather"):
+            if rank() != self.owner:
+                sent = []  # (host buffer, its send): each buffer lives until its send ends
+                for i, t in outs.items():
+                    host = _to_host(t)
+                    sent.append((host, dist.isend(host, dst=self.owner, tag=i)))
+                for _, work in sent:
+                    work.wait()
+                return None
+            for i, (buf, work) in self.recvs.items():
                 work.wait()
-            return None
-        for i, (buf, work) in self.recvs.items():
-            work.wait()
-            outs[i] = to_device(buf, self.first)
-        return [outs[i] for i in range(len(self.procs))]
+                outs[i] = _moved("gather", _copied("gather", buf), self.first)
+            return [outs[i] for i in range(len(self.procs))]
 
 
 def _mine(mesh: Mesh) -> list:
@@ -274,7 +311,7 @@ def _row_blocks(img: torch.Tensor, mesh: Mesh, r: int, fn: Callable,
         return t.narrow(axis, j * hb, hb)
 
     mine = _mine(mesh)
-    blocks = {j: to_device(rows(padded, j), d) for j, d in mine}
+    blocks = {j: _scatter(rows(padded, j), d) for j, d in mine}
     outs = {}
     for j, d in mine:
         args = [blocks[j]]
@@ -283,7 +320,7 @@ def _row_blocks(img: torch.Tensor, mesh: Mesh, r: int, fn: Callable,
             down = blocks.get(j + 1, rows(padded, j + 1)) if j < n - 1 else None
             args = [_halo_extend(blocks[j], r, up, down, axis=axis)]
         if ov is not None:
-            ov_block = to_device(rows(ov, j), d)
+            ov_block = _scatter(rows(ov, j), d)
             args.append(_zero_extend(ov_block, r, axis) if r else ov_block)
         outs[j] = _crop(fn(*args), r, axis)
     return outs
@@ -322,10 +359,11 @@ def process_spatial(img, fn: Callable, mesh: Optional[Mesh] = None, *, halo: int
     r = int(halo)
     if r < 0:
         raise ValueError(f"process_spatial: halo {halo} < 0")
-    img = _u8(img)
-    mesh = _checked(mesh, "process_spatial", _describe(img), r)
+    with span("pfe.spatial.check"):
+        img = _u8(img)
+        mesh = _checked(mesh, "process_spatial", _describe(img), r)
     if route(img.shape[0], mesh.size, r) == "single-device":
-        return fn(to_device(img, _first(mesh))) if _owner(mesh) else None
+        return fn(_scatter(img, _first(mesh))) if _owner(mesh) else None
     return _run_rows(img, mesh, r, fn)
 
 
@@ -338,17 +376,19 @@ def composite_spatial(layers, modes, opacities, mesh: Optional[Mesh] = None):
     in every other process."""
     from paintfe_tpu_torch.core.composite import composite_stack_static
 
-    layers = _u8(layers)
-    mesh = _checked(mesh, "composite_spatial", _describe(layers),
-                    host_values(modes, np.int64), host_values(opacities, np.float32))
+    with span("pfe.spatial.check"):
+        layers = _u8(layers)
+        mesh = _checked(mesh, "composite_spatial", _describe(layers),
+                        host_values(modes, np.int64), host_values(opacities, np.float32))
     h = layers.shape[1]
     pad = (-h) % mesh.size
     if pad:
-        layers = torch.cat([layers, layers.new_zeros(
-            (layers.shape[0], pad) + tuple(layers.shape[2:]))], dim=1)
+        with span("pfe.spatial.scatter"):
+            layers = _copied("scatter", torch.cat([layers, layers.new_zeros(
+                (layers.shape[0], pad) + tuple(layers.shape[2:]))], dim=1))
     hb = layers.shape[1] // mesh.size
     gather = _Gather(mesh, (hb,) + tuple(layers.shape[2:]))
-    outs = {i: composite_stack_static(to_device(layers.narrow(1, i * hb, hb), d),
+    outs = {i: composite_stack_static(_scatter(layers.narrow(1, i * hb, hb), d),
                                       modes, opacities)
             for i, d in _mine(mesh)}
     parts = gather.finish(outs)
@@ -372,15 +412,16 @@ def fused_chain_spatial(img, overlay, mesh: Optional[Mesh] = None, **params):
     other process."""
     from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
 
-    img, overlay = _u8(img), _u8(overlay)
-    mesh = _checked(mesh, "fused_chain_spatial", _describe(img), _describe(overlay),
-                    sorted(params.items()))
-    r = _chain_radius(params)
+    with span("pfe.spatial.check"):
+        img, overlay = _u8(img), _u8(overlay)
+        mesh = _checked(mesh, "fused_chain_spatial", _describe(img), _describe(overlay),
+                        sorted(params.items()))
+        r = _chain_radius(params)
     if route(img.shape[0], mesh.size, r) == "single-device":
         if not _owner(mesh):
             return None
         first = _first(mesh)
-        return fused_chain_kernel(to_device(img, first), to_device(overlay, first), **params)
+        return fused_chain_kernel(_scatter(img, first), _scatter(overlay, first), **params)
     return _run_rows(img, mesh, r, lambda block, ov: fused_chain_kernel(block, ov, **params),
                      overlay)
 
@@ -395,11 +436,12 @@ def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
     every other process.  B must divide by the batch axis."""
     from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
 
-    imgs, overlays = _u8(imgs), _u8(overlays)
-    mesh = _checked(mesh, "fused_chain_grid", _describe(imgs), _describe(overlays),
-                    sorted(params.items()))
+    with span("pfe.spatial.check"):
+        imgs, overlays = _u8(imgs), _u8(overlays)
+        mesh = _checked(mesh, "fused_chain_grid", _describe(imgs), _describe(overlays),
+                        sorted(params.items()))
+        r = _chain_radius(params)
     nb, nr = mesh.shape["batch"], mesh.shape["rows"]
-    r = _chain_radius(params)
     b, h = imgs.shape[0], imgs.shape[1]
     if b % nb != 0:
         raise ValueError(f"batch {b} not divisible by mesh batch axis {nb}")
@@ -407,8 +449,8 @@ def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
     if route(h, nr, r) == "single-device":
         if not _owner(mesh):
             return None
-        return torch.stack([fused_chain_kernel(to_device(imgs[i], first),
-                                               to_device(overlays[i], first), **params)
+        return torch.stack([fused_chain_kernel(_scatter(imgs[i], first),
+                                               _scatter(overlays[i], first), **params)
                             for i in range(b)])
     per = b // nb
 
@@ -426,7 +468,9 @@ def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
     parts = gather.finish(outs)
     if parts is None:
         return None
-    return torch.cat([_join(parts[k * nr:(k + 1) * nr], first, h, axis=1) for k in range(nb)])
+    joined = [_join(parts[k * nr:(k + 1) * nr], first, h, axis=1) for k in range(nb)]
+    with span("pfe.spatial.join"):
+        return _copied("join", torch.cat(joined))
 
 
 def median_spatial(img, r: int, mesh: Optional[Mesh] = None):
@@ -439,11 +483,12 @@ def median_spatial(img, r: int, mesh: Optional[Mesh] = None):
     K-median does)."""
     from paintfe_tpu_torch.ops.kernels import median_kernel
 
-    img = _u8(img)
-    r = int(r)
-    mesh = _checked(mesh, "median_spatial", _describe(img), r)
+    with span("pfe.spatial.check"):
+        img = _u8(img)
+        r = int(r)
+        mesh = _checked(mesh, "median_spatial", _describe(img), r)
     if r <= 0 or route(img.shape[0], mesh.size, r) == "single-device":
-        return median_kernel(to_device(img, _first(mesh)), r) if _owner(mesh) else None
+        return median_kernel(_scatter(img, _first(mesh)), r) if _owner(mesh) else None
     return _run_rows(img, mesh, r, lambda block: median_kernel(block, r))
 
 
@@ -462,18 +507,19 @@ def warp_spatial(src, sx, sy, mode: str = "zero", mesh: Optional[Mesh] = None):
     multiple of the mesh size, not of n times the Pallas tile height."""
     from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
 
-    src, sx, sy = _u8(src), _f32(sx), _f32(sy)
-    mesh = _checked(mesh, "warp_spatial", _describe(src), _describe(sx), _describe(sy),
-                    str(mode))
+    with span("pfe.spatial.check"):
+        src, sx, sy = _u8(src), _f32(sx), _f32(sy)
+        mesh = _checked(mesh, "warp_spatial", _describe(src), _describe(sx), _describe(sy),
+                        str(mode))
     h, w = sx.shape
     n = mesh.size
     mine = _mine(mesh)
-    sources = {d: to_device(src, d) for d in {d for _, d in mine}}  # one copy a device
+    sources = {d: _scatter(src, d) for d in {d for _, d in mine}}  # one copy a device
     sxp, syp = _edge_pad(sx, n, 0), _edge_pad(sy, n, 0)
     hb = sxp.shape[0] // n
     gather = _Gather(mesh, (hb, w, 4))
-    outs = {i: gather_bilinear_u8(sources[d], to_device(sxp.narrow(0, i * hb, hb), d),
-                                  to_device(syp.narrow(0, i * hb, hb), d), mode)
+    outs = {i: gather_bilinear_u8(sources[d], _scatter(sxp.narrow(0, i * hb, hb), d),
+                                  _scatter(syp.narrow(0, i * hb, hb), d), mode)
             for i, d in mine}
     parts = gather.finish(outs)
     return None if parts is None else _join(parts, _first(mesh), h)

@@ -26,6 +26,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from paintfe_tpu_torch.utils import profiling
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
 
@@ -154,24 +156,18 @@ def check(rc: int, what: str):
         raise RuntimeError(f"{what} failed: cudaError_t {rc}")
 
 
-# One lock for every wrapper's launch count: `fn.launches += 1` is a read,
-# an add and a write, and the server's handler threads launch at once.
-LAUNCH_LOCK = threading.Lock()
-_LAUNCHED = {}  # id -> each wrapper that has counted a launch in this process
-
-
-def count_launch(wrapper):
-    """Add one to `wrapper.launches`, the count a kernel's wrapper keeps of
-    its launches; read a consistent set of counts under LAUNCH_LOCK."""
-    with LAUNCH_LOCK:
-        wrapper.launches += 1
-        _LAUNCHED[id(wrapper)] = wrapper
+# The lock of every count (utils/profiling.COUNT_LOCK): `fn.launches += 1`
+# is a read, an add and a write, and the server's handler threads launch
+# at once.
+LAUNCH_LOCK = profiling.COUNT_LOCK
+# Add one to `wrapper.launches`, the count a kernel's wrapper keeps of its
+# launches; read a consistent set of counts under LAUNCH_LOCK.
+count_launch = profiling.count_launch
 
 
 def launch_counts() -> dict:
     """The launch count of each kernel that has launched in this process,
     by wrapper name (a CPU run launches none)."""
-    with LAUNCH_LOCK:
-        counts = {getattr(fn, "__name__", type(fn).__name__): fn.launches
-                  for fn in _LAUNCHED.values()}
-    return dict(sorted(counts.items()))
+    n = len(profiling.LAUNCHES)
+    return {name[n:]: c for name, c in profiling.counts().items()
+            if name.startswith(profiling.LAUNCHES)}

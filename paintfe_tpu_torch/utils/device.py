@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paintfe_tpu_torch.utils.profiling import count, span
+
 
 def resolve_device(device="cuda") -> torch.device:
     """`device` as a torch.device; raises RuntimeError for a CUDA device
@@ -21,10 +23,13 @@ def upload_shared(host: np.ndarray, device) -> torch.Tensor:
     """`host` as a tensor on `device`, for a cache that any host thread and
     any CUDA stream may read: on a CUDA device the copy has completed when
     this returns (the uploading stream is synchronized), so a kernel queued
-    on another stream never reads a table still in flight."""
-    t = torch.from_numpy(np.array(host)).to(device)  # a copy: `host` may be read-only
-    if t.is_cuda:
-        torch.cuda.current_stream(t.device).synchronize()
+    on another stream never reads a table still in flight.  Span
+    `pfe.device.upload`; counter `device.uploads`."""
+    with span("pfe.device.upload"):
+        t = torch.from_numpy(np.array(host)).to(device)  # a copy: `host` may be read-only
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+    count("device.uploads")
     return t
 
 

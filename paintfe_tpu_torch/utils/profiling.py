@@ -1,21 +1,98 @@
 """Per-stage wall-clock timing for the CLI's --profile, the profiler
-trace of its --trace-dir, and the 60-sample frame-time ring (the
-counterpart of paintfe_tpu/utils/profiling.py).
+trace of its --trace-dir, the program's spans and counters, and the
+60-sample frame-time ring (the counterpart of
+paintfe_tpu/utils/profiling.py).
 
 Behavioral contract: the reference's observability surface (SURVEY §5) —
 per-file wall clock in CLI verbose (cli.rs:164), FPS ring, script
 elapsed_ms — with stage timers that wait for the device work a stage
-queued."""
+queued.
+
+Spans (`span`) are ranges of the torch profiler that is recording, if
+one is: `--trace-dir`'s, or any caller's.  Each is a CPU operator on the
+host thread that opened it, on the profiler's clock; its parent is the
+span or range that encloses it on that thread.  Names are
+`pfe.<layer>.<step>`.  Counters (`count`) are one registry for the
+process, the kernels' launch counts among them
+(utils/cuda_build.count_launch)."""
 
 from __future__ import annotations
 
 import contextlib
 import os
 import pathlib
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager: a range named `name` in the torch profiler that
+    is recording, and nothing (one flag read) when none is.  A
+    _RecordFunctionFast range is a CPU operator: unlike
+    torch.profiler.record_function, it is not mirrored onto the device
+    timeline, so a span never reads as device work."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _RecordFunctionFast(name)
+
+
+# One lock for every count of the process, the kernels' launch counts
+# included (utils/cuda_build.LAUNCH_LOCK is this lock): an add is a read,
+# an add and a write, and the server's handler threads count at once.
+COUNT_LOCK = threading.Lock()
+_COUNTS: Dict[str, int] = {}
+_TRACED: Dict[str, int] = {}  # the counts made while a profiler recorded
+_KERNELS: Dict[int, object] = {}  # id -> each kernel wrapper that has launched
+LAUNCHES = "launches."  # a kernel's entry in counts(): LAUNCHES + its wrapper's name
+
+
+def count(name: str, n: int = 1):
+    """Add n to the process's counter `name`; while a torch profiler
+    records, to its traced count too."""
+    traced = _autograd_profiler._is_profiler_enabled
+    with COUNT_LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+        if traced:
+            _TRACED[name] = _TRACED.get(name, 0) + n
+
+
+def count_launch(wrapper):
+    """Add one to `wrapper.launches`, the one store of a kernel's launch
+    count, which counts() reads as `launches.<name>`; while a torch
+    profiler records, to the traced count of that name too."""
+    traced = _autograd_profiler._is_profiler_enabled
+    with COUNT_LOCK:
+        wrapper.launches += 1
+        _KERNELS[id(wrapper)] = wrapper
+        if traced:
+            name = LAUNCHES + _name(wrapper)
+            _TRACED[name] = _TRACED.get(name, 0) + 1
+
+
+def _name(wrapper) -> str:
+    return getattr(wrapper, "__name__", type(wrapper).__name__)
+
+
+def counts(traced: bool = False) -> Dict[str, int]:
+    """Every counter of the process by name, each launched kernel's
+    `.launches` among them; with traced=True, only what was counted while
+    a torch profiler recorded.  That set is never reset: it is a
+    profiler's window (one started after a warm-up) only in a process
+    that runs one profiler."""
+    with COUNT_LOCK:
+        if traced:
+            out = dict(_TRACED)
+        else:
+            out = dict(_COUNTS)
+            out.update((LAUNCHES + _name(fn), fn.launches) for fn in _KERNELS.values())
+    return dict(sorted(out.items()))
 
 
 class _StageHandle:
