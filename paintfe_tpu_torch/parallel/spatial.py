@@ -49,6 +49,18 @@ halo radius (one neighbour cannot fill the halo) the JAX functions run
 the single-device kernel, and so do these, on the owner's first entry
 alone: `route` says which a call takes.
 
+**One entry.**  A mesh whose 'rows' axis has a single entry has no
+neighbours: every halo row would be an end block's replicated edge row,
+the kernel's own clamp, and the overlay's zero rows feed only rows that
+are cropped.  So such a call runs the single-device kernel on the image
+where it lies: no padding, halo, overlay rows, crop or join
+(fused_chain_spatial, process_spatial, median_spatial take the
+single-device route; composite_spatial and warp_spatial return their one
+block as it is; fused_chain_grid runs each 'batch' entry's slab
+unextended and keeps its batch split).  A mesh of two or more 'rows'
+entries runs the row split above, whatever devices and processes its
+entries name.
+
 **Spans and counters** (utils/profiling: spans only while a torch
 profiler records, as under the CLI's --trace-dir): `pfe.spatial.check`
 (the call's arguments and `_checked`), `pfe.spatial.scatter` (padding and
@@ -58,7 +70,8 @@ kernels' own spans lie between them.  Each step but the check counts the
 bytes it copies in `spatial.copy_bytes.<step>`: what it writes into a
 new tensor (a cat's output, never the small rows that feed it), moves to
 another device or to the host, or receives from another process; a view,
-and a move to the device a tensor already lies on, count 0.
+and a move to the device a tensor already lies on, count 0.  Each call
+counts the route it takes in `spatial.route.<route>`.
 """
 
 from __future__ import annotations
@@ -122,11 +135,18 @@ def grid_mesh(n_batch: int, n_rows: int, devices=None) -> Mesh:
 
 
 def route(h: int, n: int, r: int) -> str:
-    """The route of an image of h rows over n 'rows' entries with a halo
-    of r rows: "single-device" when a block (h padded to a multiple of n,
-    over n) is shorter than r, since one neighbour's block cannot fill
-    the halo; else "sharded"."""
-    return "single-device" if (h + (-h) % n) // n < r else "sharded"
+    """The route a call takes with an image of h rows over n 'rows'
+    entries and a halo of r rows: "single-device" when n is 1 (the kernel
+    on the image where it lies) or when a block (h padded to a multiple
+    of n, over n) is shorter than r, since one neighbour's block cannot
+    fill the halo; else "sharded"."""
+    return "single-device" if n == 1 or (h + (-h) % n) // n < r else "sharded"
+
+
+def _counted(way: str) -> str:
+    """`way`, a call's route, counted as `spatial.route.<way>`."""
+    count(f"spatial.route.{way}")
+    return way
 
 
 def _checked(mesh: Optional[Mesh], *call) -> Mesh:
@@ -228,9 +248,14 @@ def _crop(t: torch.Tensor, r: int, axis: int = 0) -> torch.Tensor:
 
 
 def _join(parts, device: torch.device, h: int, axis: int = 0) -> torch.Tensor:
-    """The blocks' results joined along `axis` on `device`, cropped to h."""
+    """The blocks' results joined along `axis` on `device`, cropped to h;
+    a single part is moved there, not copied where it lies there."""
     with span("pfe.spatial.join"):
-        out = _copied("join", torch.cat([_moved("join", p, device) for p in parts], dim=axis))
+        if len(parts) == 1:
+            out = _moved("join", parts[0], device)
+        else:
+            out = _copied("join", torch.cat([_moved("join", p, device) for p in parts],
+                                            dim=axis))
     return out.narrow(axis, 0, h) if out.shape[axis] != h else out
 
 
@@ -352,17 +377,18 @@ def process_spatial(img, fn: Callable, mesh: Optional[Mesh] = None, *, halo: int
     its input's shape.  (The JAX function leans on XLA's SPMD partitioner
     to insert the halos for any fn; torch has no partitioner, so the
     caller states the halo.  It is keyword-only with no default: a
-    missing halo is an error, never a wrong image.)  Blocks shorter than
-    `halo` take the single-device route: fn on the whole image on the
-    first entry.  Returns a tensor on the first entry's device in the
-    process that owns it, None in every other process."""
+    missing halo is an error, never a wrong image.)  A one-entry mesh,
+    and blocks shorter than `halo`, take the single-device route: fn on
+    the whole image on the first entry.  Returns a tensor on the first
+    entry's device in the process that owns it, None in every other
+    process."""
     r = int(halo)
     if r < 0:
         raise ValueError(f"process_spatial: halo {halo} < 0")
     with span("pfe.spatial.check"):
         img = _u8(img)
         mesh = _checked(mesh, "process_spatial", _describe(img), r)
-    if route(img.shape[0], mesh.size, r) == "single-device":
+    if _counted(route(img.shape[0], mesh.size, r)) == "single-device":
         return fn(_scatter(img, _first(mesh))) if _owner(mesh) else None
     return _run_rows(img, mesh, r, fn)
 
@@ -371,6 +397,7 @@ def composite_spatial(layers, modes, opacities, mesh: Optional[Mesh] = None):
     """Flatten a layer stack whose rows are split over the mesh: each entry
     folds its [N, hb, W, 4] block with the static compositor (K-composite;
     pointwise, so no halo).  H is padded with zero rows, which are cropped.
+    On a one-entry mesh the one block's result is returned as it is.
     `layers` is u8 [N, H, W, 4] (tensor or array).  Returns the flattened
     image on the first entry's device in the process that owns it, None
     in every other process."""
@@ -381,6 +408,7 @@ def composite_spatial(layers, modes, opacities, mesh: Optional[Mesh] = None):
         mesh = _checked(mesh, "composite_spatial", _describe(layers),
                         host_values(modes, np.int64), host_values(opacities, np.float32))
     h = layers.shape[1]
+    _counted(route(h, mesh.size, 0))
     pad = (-h) % mesh.size
     if pad:
         with span("pfe.spatial.scatter"):
@@ -407,7 +435,8 @@ def fused_chain_spatial(img, overlay, mesh: Optional[Mesh] = None, **params):
     neighbours (r, the blur's tap radius), runs K-chain on it and crops —
     the shard, exchange-halos, compute-locally recipe applied to an image
     kernel.  The overlay's halo rows are zeros (their results are
-    cropped).  Equal to the single-device kernel, byte for byte, on the
+    cropped).  A one-entry mesh runs K-chain on the image where it lies.
+    Equal to the single-device kernel, byte for byte, on the
     first entry's device in the process that owns it; None in every
     other process."""
     from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
@@ -417,7 +446,7 @@ def fused_chain_spatial(img, overlay, mesh: Optional[Mesh] = None, **params):
         mesh = _checked(mesh, "fused_chain_spatial", _describe(img), _describe(overlay),
                         sorted(params.items()))
         r = _chain_radius(params)
-    if route(img.shape[0], mesh.size, r) == "single-device":
+    if _counted(route(img.shape[0], mesh.size, r)) == "single-device":
         if not _owner(mesh):
             return None
         first = _first(mesh)
@@ -431,9 +460,11 @@ def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
     ('batch', 'rows') mesh: images split over 'batch', each image's rows
     over 'rows' with the halo exchange between 'rows' neighbours (the
     whole local batch slab in one copy), then K-chain once per local
-    image.  Equal to fused_chain_kernel per image on one device, stacked
-    on the first entry's device in the process that owns it; None in
-    every other process.  B must divide by the batch axis."""
+    image.  With one 'rows' entry each 'batch' entry runs its slab
+    unextended (no halo, crop or one-block join).  Equal to
+    fused_chain_kernel per image on one device, stacked on the first
+    entry's device in the process that owns it; None in every other
+    process.  B must divide by the batch axis."""
     from paintfe_tpu_torch.ops.fused_chain import fused_chain_kernel
 
     with span("pfe.spatial.check"):
@@ -446,13 +477,17 @@ def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
     if b % nb != 0:
         raise ValueError(f"batch {b} not divisible by mesh batch axis {nb}")
     first = _first(mesh)
-    if route(h, nr, r) == "single-device":
+    # the whole batch on the first entry: a one-entry mesh, or blocks too
+    # short for the halo; one 'rows' entry under a 'batch' split keeps the
+    # split, each image on the single-device route of its own entry
+    if _counted(route(h, nr, r)) == "single-device" and (nr > 1 or nb == 1):
         if not _owner(mesh):
             return None
         return torch.stack([fused_chain_kernel(_scatter(imgs[i], first),
                                                _scatter(overlays[i], first), **params)
                             for i in range(b)])
     per = b // nb
+    r = r if nr > 1 else 0
 
     def chain(slab, ov):  # K-chain once per local image
         return torch.stack([fused_chain_kernel(slab[j], ov[j], **params)
@@ -478,7 +513,7 @@ def median_spatial(img, r: int, mesh: Optional[Mesh] = None):
     K-median on its block extended by r halo rows and crops; equal to
     ops/kernels.median_kernel on one device, on the first entry's device
     in the process that owns it (None in every other process).  r <= 0,
-    and blocks shorter than r, take the single-device route
+    a one-entry mesh and blocks shorter than r take the single-device route
     (median_kernel on the first entry, which refuses r < 1 as the port's
     K-median does)."""
     from paintfe_tpu_torch.ops.kernels import median_kernel
@@ -487,7 +522,8 @@ def median_spatial(img, r: int, mesh: Optional[Mesh] = None):
         img = _u8(img)
         r = int(r)
         mesh = _checked(mesh, "median_spatial", _describe(img), r)
-    if r <= 0 or route(img.shape[0], mesh.size, r) == "single-device":
+    way = "single-device" if r <= 0 else route(img.shape[0], mesh.size, r)
+    if _counted(way) == "single-device":
         return median_kernel(_scatter(img, _first(mesh)), r) if _owner(mesh) else None
     return _run_rows(img, mesh, r, lambda block: median_kernel(block, r))
 
@@ -504,7 +540,8 @@ def warp_spatial(src, sx, sy, mode: str = "zero", mesh: Optional[Mesh] = None):
     Never returns None for an infeasible field, unlike the JAX function,
     whose TPU planner may find one: K-warp gathers any field, so there is
     no planner.  H is padded (by replicating the field's last row) to a
-    multiple of the mesh size, not of n times the Pallas tile height."""
+    multiple of the mesh size, not of n times the Pallas tile height.  On
+    a one-entry mesh the one block's result is returned as it is."""
     from paintfe_tpu_torch.ops.warp_kernel import gather_bilinear_u8
 
     with span("pfe.spatial.check"):
@@ -513,6 +550,7 @@ def warp_spatial(src, sx, sy, mode: str = "zero", mesh: Optional[Mesh] = None):
                         str(mode))
     h, w = sx.shape
     n = mesh.size
+    _counted(route(h, n, 0))
     mine = _mine(mesh)
     sources = {d: _scatter(src, d) for d in {d for _, d in mine}}  # one copy a device
     sxp, syp = _edge_pad(sx, n, 0), _edge_pad(sy, n, 0)

@@ -1429,6 +1429,41 @@ def test_spatial_single_device_route_and_grid_on_the_card(dev):
     assert torch.equal(out, torch.stack([fused_chain_kernel(imgs[i], ovs[i]) for i in range(4)]))
 
 
+@pytest.mark.parametrize("h", [61, 96])
+def test_spatial_one_entry_runs_the_kernel_where_the_image_lies(dev, h):
+    """fused_chain_spatial and composite_spatial on rows_mesh([card]): one
+    launch, no byte copied by the spatial layer, byte-equal to the
+    single-device kernel; the grid on grid_mesh(4, 1) keeps its batch
+    split, one launch an image."""
+    from paintfe_tpu_torch.core.composite import composite_stack_static
+    from paintfe_tpu_torch.parallel import spatial
+    from paintfe_tpu_torch.utils import profiling
+
+    img, ov, stack = _img((h, 84), 50, dev), _img((h, 84), 51, dev), _img((5, h, 84), 52, dev)
+    modes, opac = (0, 8, 16, 3, 21), (1.0, 0.8, 0.5, 0.9, 0.7)
+    mesh = spatial.rows_mesh([dev])
+    for wrapper, call, single in (
+            (fused_chain_kernel, lambda: spatial.fused_chain_spatial(img, ov, mesh),
+             lambda: fused_chain_kernel(img, ov)),
+            (kernels.composite_stack_kernel,
+             lambda: spatial.composite_spatial(stack, modes, opac, mesh),
+             lambda: composite_stack_static(stack, modes, opac))):
+        want = single()
+        before, copied = wrapper.launches, profiling.counts()
+        got = call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert {n: c for n, c in profiling.counts().items()
+                if n.startswith("spatial.copy_bytes.") and c != copied.get(n, 0)} == {}
+        assert got.device == dev and torch.equal(got, want)
+    imgs, ovs = _img((4, h, 72), 53, dev), _img((4, h, 72), 54, dev)
+    before = fused_chain_kernel.launches
+    out = spatial.fused_chain_grid(imgs, ovs, spatial.grid_mesh(4, 1, [dev] * 4))
+    torch.cuda.synchronize()
+    assert fused_chain_kernel.launches == before + 4
+    assert torch.equal(out, torch.stack([fused_chain_kernel(imgs[i], ovs[i]) for i in range(4)]))
+
+
 def test_run_batch_over_repeated_card_entries_equals_the_cpu(dev):
     """run_batch on a 3-entry mesh of the card: one K-blur launch an entry,
     equal to the CPU run."""

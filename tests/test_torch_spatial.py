@@ -3,7 +3,9 @@ the JAX package's (paintfe_tpu.parallel.spatial), case for case with
 tests/test_spatial.py: the JAX functions on conftest's eight forced CPU
 devices, the port on an 8-entry CPU mesh (torch has one CPU device, so
 the entries repeat it), tolerance 0.  Each port result is also held
-against the port's own single-device call.  (tests/test_spatial.py's
+against the port's own single-device call; every function also on
+meshes of one, two and three entries, where one entry takes the
+single-device route and copies nothing.  (tests/test_spatial.py's
 4K case is marked slow there; chip_smoke.py runs the port at 16384x16384
 on the card.)  A mesh naming a process the job does not have is refused;
 meshes across real processes: tests/test_torch_spatial_processes.py.
@@ -254,6 +256,137 @@ def test_fused_chain_grid_2d_mesh(h, calls):
     np.testing.assert_array_equal(_np(out), ref)
     with pytest.raises(ValueError, match="not divisible"):
         tspatial.fused_chain_grid(imgs[:3], ovs[:3], tmesh)
+
+
+SMALL_MESH_CALLS = ["process_spatial", "fused_chain_spatial", "median_spatial", "warp_spatial",
+                    "composite_spatial", "fused_chain_grid"]
+
+
+def _counted(fn):
+    """fn()'s result and the spatial counters it moved, by name less
+    `spatial.`."""
+    from paintfe_tpu_torch.utils import profiling
+
+    before = profiling.counts()
+    out = fn()
+    moved = {name[len("spatial."):]: n - before.get(name, 0)
+             for name, n in profiling.counts().items()
+             if name.startswith("spatial.") and n != before.get(name, 0)}
+    return out, moved
+
+
+@pytest.mark.parametrize("h", [61, 64])
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("call", SMALL_MESH_CALLS)
+def test_small_meshes_match_jax_and_one_device(call, n, h, calls):
+    """Each spatial function on a mesh of n 'rows' entries (the grid on
+    grid_mesh(1, n)) against the JAX function on n CPU devices and the
+    port's single-device call, tolerance 0.  One entry takes the
+    single-device route: one kernel call on the image where it lies, no
+    byte copied; two and three entries shard, one call an entry."""
+    from paintfe_tpu.core.composite import composite_stack_static as jcomposite
+    from paintfe_tpu.ops.fused_chain import fused_chain as jfused
+    from paintfe_tpu.ops.pallas_kernels import median_pallas
+    from paintfe_tpu_torch.core.composite import composite_stack_static as tcomposite
+
+    rng = np.random.default_rng(31 * n + h)
+    w = 40
+    img, ov = (torch.from_numpy(rng.integers(0, 256, (h, w, 4), np.uint8)) for _ in range(2))
+    layers = torch.from_numpy(rng.integers(0, 256, (5, h, w, 4), np.uint8))
+    imgs, ovs = (torch.from_numpy(rng.integers(0, 256, (2, h, w, 4), np.uint8))
+                 for _ in range(2))
+    sx, sy = (torch.from_numpy(a) for a in _swirl(h, w))
+    modes, opac = (0, 8, 16, 3, 21), np.array([1.0, 0.8, 0.5, 0.9, 0.7], np.float32)
+    jdev, tdev = jax.devices()[:n], [CPU] * n
+    jmesh, tmesh = jspatial.rows_mesh(jdev), tspatial.rows_mesh(tdev)
+    jgrid, tgrid = jspatial.grid_mesh(1, n, jdev), tspatial.grid_mesh(1, n, tdev)
+
+    def blur(x):
+        calls["blur"] = calls.get("blur", 0) + 1
+        return tfilters.gaussian_blur(x, 3.0)
+
+    a = {name: t.numpy() for name, t in (("img", img), ("ov", ov), ("layers", layers),
+                                         ("imgs", imgs), ("ovs", ovs), ("sx", sx), ("sy", sy))}
+    jax_call, port_call, single, kernel, r = {
+        "process_spatial": (
+            lambda: jspatial.process_spatial(a["img"], lambda x: jfilters.gaussian_blur(x, 3.0),
+                                             jmesh),
+            lambda: tspatial.process_spatial(img, blur, tmesh, halo=_radius(3.0)),
+            lambda: blur(img), "blur", _radius(3.0)),
+        "fused_chain_spatial": (
+            lambda: jspatial.fused_chain_spatial(a["img"], a["ov"], jmesh),
+            lambda: tspatial.fused_chain_spatial(img, ov, tmesh),
+            lambda: tchain.fused_chain_kernel(img, ov), "fused_chain_kernel", _radius(2.0)),
+        "median_spatial": (
+            lambda: jspatial.median_spatial(a["img"], 2, jmesh),
+            lambda: tspatial.median_spatial(img, 2, tmesh),
+            lambda: tkernels.median_kernel(img, 2), "median_kernel", 2),
+        "warp_spatial": (
+            lambda: jspatial.warp_spatial(a["img"], a["sx"], a["sy"], mode="clamp", mesh=jmesh),
+            lambda: tspatial.warp_spatial(img, sx, sy, mode="clamp", mesh=tmesh),
+            lambda: twarp.gather_bilinear_u8(img, sx, sy, "clamp"), "gather_bilinear_u8", 0),
+        "composite_spatial": (
+            lambda: jspatial.composite_spatial(a["layers"], modes, opac, jmesh),
+            lambda: tspatial.composite_spatial(layers, modes, opac, tmesh),
+            lambda: tcomposite(layers, modes, opac), "composite_stack_kernel", 0),
+        "fused_chain_grid": (
+            lambda: jspatial.fused_chain_grid(a["imgs"], a["ovs"], jgrid),
+            lambda: tspatial.fused_chain_grid(imgs, ovs, tgrid),
+            lambda: torch.stack([tchain.fused_chain_kernel(imgs[i], ovs[i]) for i in range(2)]),
+            "fused_chain_kernel", _radius(2.0)),
+    }[call]
+    want = _np(single())
+    calls.clear()
+    out, moved = _counted(port_call)
+    per_call = 2 if call == "fused_chain_grid" else 1  # the grid's images
+    way = tspatial.route(h, n, r)
+    assert way == ("single-device" if n == 1 else "sharded")
+    assert moved.pop(f"route.{way}") == 1
+    if n == 1:
+        assert moved == {}
+    assert calls == {kernel: per_call * n}
+    np.testing.assert_array_equal(_np(out), want)
+    if call == "median_spatial":
+        np.testing.assert_array_equal(want, np.asarray(median_pallas(a["img"], 2)))
+    elif call == "fused_chain_spatial":
+        np.testing.assert_array_equal(
+            want, np.asarray(jax.jit(lambda x, y: jfused(x, y))(a["img"], a["ov"])))
+    elif call == "composite_spatial":
+        np.testing.assert_array_equal(want, np.asarray(jcomposite(a["layers"], modes, opac)))
+    np.testing.assert_array_equal(_np(out), np.asarray(jax_call()))
+
+
+@pytest.mark.parametrize("h", [61, 64])
+def test_grid_with_one_rows_entry_keeps_its_batch_split(h, calls, monkeypatch):
+    """fused_chain_grid on grid_mesh(4, 1): each 'batch' entry runs K-chain
+    on its own image, unextended (no halo, overlay rows or scatter
+    copies), and only the batch's four parts are joined; byte-equal to
+    the JAX grid on grid_mesh(4, 1) and to the kernel image by image."""
+    from paintfe_tpu.ops.fused_chain import fused_chain as jfused
+
+    rng = np.random.default_rng(37 + h)
+    w = 48
+    imgs, ovs = (rng.integers(0, 256, (4, h, w, 4), np.uint8) for _ in range(2))
+    tgrid = tspatial.grid_mesh(4, 1, [CPU] * 4)
+    record = []
+    inner = tspatial._row_blocks
+
+    def blocks(slab, mesh, r, fn, overlay=None, axis=0):
+        record.append((mesh.size, slab.shape[0], r))
+        return inner(slab, mesh, r, fn, overlay, axis)
+    monkeypatch.setattr(tspatial, "_row_blocks", blocks)
+    out, moved = _counted(lambda: tspatial.fused_chain_grid(imgs, ovs, tgrid))
+    assert record == [(1, 1, 0)] * 4  # one image an entry, no halo rows
+    assert calls == {"fused_chain_kernel": 4}
+    assert moved == {"route.single-device": 1, "copy_bytes.join": 4 * h * w * 4}
+    ref = np.stack([np.asarray(jax.jit(lambda a, b: jfused(a, b))(imgs[i], ovs[i]))
+                    for i in range(4)])
+    jgrid = jspatial.grid_mesh(4, 1, jax.devices()[:4])
+    np.testing.assert_array_equal(np.asarray(jspatial.fused_chain_grid(imgs, ovs, jgrid)), ref)
+    np.testing.assert_array_equal(_np(out), ref)
+    single = torch.stack([tchain.fused_chain_kernel(torch.from_numpy(imgs[i]),
+                                                    torch.from_numpy(ovs[i])) for i in range(4)])
+    np.testing.assert_array_equal(_np(single), ref)
 
 
 def test_fused_chain_spatial_zero_sigma():

@@ -82,12 +82,18 @@ def test_spatial_calls_emit_their_spans_under_a_profiler(call, k):
     range: the check once, one halo and overlay span a block (the chain),
     the layer list of each block's fold (the compositor on the CPU), the
     gather's two, the join once; padding (50 rows over 4 entries) and the
-    blocks are the scatter."""
+    blocks are the scatter.  The chain on one entry takes the
+    single-device route: the check and the image's and overlay's
+    scatter, which move nothing, alone."""
     h = 50
     spans, _ = _traced(lambda: CALLS[call](h, k))
     names = _names(spans)
     assert all(parent == "request" for *_, parent in spans), spans
     assert names["pfe.spatial.check"] == 1
+    if call == "chain" and k == 1:
+        assert [s[0] for s in spans if s[0].startswith("pfe.spatial.")] == \
+            ["pfe.spatial.check", "pfe.spatial.scatter", "pfe.spatial.scatter"]
+        return
     assert names["pfe.spatial.gather"] == 2
     assert names["pfe.spatial.join"] == 1
     pad = h % k != 0
@@ -146,8 +152,9 @@ def _copied(fn):
 def test_chain_copy_bytes_follow_shapes_and_halo(k, h):
     """K entries of hb = ceil(h / k) rows: a padded image and overlay when
     k does not divide h, a halo and an overlay block of hb + 2r rows each,
-    the join of k blocks; a block shorter than r takes the single-device
-    route, where the image already lies on the entry: no copy at all."""
+    the join of k blocks; one entry, and a block shorter than r, take the
+    single-device route, where the image already lies on the entry: no
+    copy at all."""
     row = W * 4
     hb = -(-h // k)
     got = _copied(lambda: _chain(h, k))
@@ -165,13 +172,28 @@ def test_chain_copy_bytes_follow_shapes_and_halo(k, h):
 @pytest.mark.parametrize("k", [1, 2, 4])
 def test_composite_copy_bytes_follow_shapes(k, h):
     """The compositor has no halo: the zero rows that pad N layers to k
-    blocks (when k does not divide h), then the join of k blocks."""
+    blocks (when k does not divide h), then the join of k blocks; one
+    entry's one block is the result, so one entry copies nothing."""
     row = W * 4
     hb = -(-h // k)
-    want = {"join": k * hb * row}
+    want = {"join": k * hb * row} if k > 1 else {}
     if h % k:
         want["scatter"] = 3 * k * hb * row
     assert _copied(lambda: _composite(h, k)) == want
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("call", sorted(CALLS))
+def test_each_call_counts_its_route(call, k):
+    """A spatial call counts its route once, `spatial.route.<route>`: the
+    single-device route on one entry, the sharded one on two (blocks of
+    24 rows hold the chain's halo of 6)."""
+    before = profiling.counts()
+    CALLS[call](48, k)
+    moved = {name: n - before.get(name, 0) for name, n in profiling.counts().items()
+             if name.startswith("spatial.route.") and n != before.get(name, 0)}
+    assert spatial.route(48, k, R) == ("single-device" if k == 1 else "sharded")
+    assert moved == {f"spatial.route.{spatial.route(48, k, R)}": 1}
 
 
 def test_a_host_copy_to_send_counts_only_when_it_copies():
