@@ -3,7 +3,12 @@
 one request at a time, the active layer cycling through the document and
 the overlay the layer above it; the chain's parameters of each request
 drawn from the seed in the traffic's ranges.  The document lies on the
-first card; the mesh has the traffic's `mesh_entries` cards."""
+first card; the mesh has the traffic's `mesh_entries` cards.
+
+SMALL and FAULTS serve the benchmark's tests: the configuration's sizes
+for a CPU run of a few ms, and the ways the timed path can break, each a
+fn(monkeypatch) that breaks it underneath (MESH_FAULTS: those that only a
+mesh of two or more entries can have)."""
 
 from __future__ import annotations
 
@@ -11,10 +16,12 @@ import dataclasses
 
 import torch
 
-from portbench import compare, inputs
+from portbench import compare, faults, inputs
 from portbench.reference import fused_chain, strips
 from portbench.reference.numerics import gaussian_taps
 
+# the tests' sizes: blocks of 20 rows on four entries, more than the halo
+SMALL = {"width": 96, "height": 80}
 PARAMS = ("brightness", "contrast", "black", "white", "gamma", "sepia_strength", "blend_opacity")
 
 
@@ -76,3 +83,30 @@ def check(state: State, kept) -> dict:
         for lo, hi, want in _reference(state, img, overlay, info["params"], torch.float32):
             worst = max(worst, compare.max_abs_diff(out[lo:hi], want))
     return {"max_abs_diff": (worst, compare.LIMIT)}
+
+
+def _state_unchanged(monkeypatch):
+    from paintfe_tpu_torch.parallel import spatial
+
+    monkeypatch.setattr(spatial, "fused_chain_spatial", lambda img, ov, mesh=None, **p: img)
+
+
+def _one_byte_altered(monkeypatch):
+    from paintfe_tpu_torch.ops import fused_chain
+
+    faults.after(monkeypatch, fused_chain, "fused_chain_kernel", faults.flip_one_byte)
+
+
+def _exchange_left_out(monkeypatch):
+    """Each block's halo is its own edge row repeated, not its neighbours'
+    rows: the exchange between entries left out."""
+    from paintfe_tpu_torch.parallel import spatial
+
+    real = spatial._halo_extend
+    monkeypatch.setattr(spatial, "_halo_extend",
+                        lambda block, r, up, down, axis=0: real(block, r, None, None, axis))
+
+
+# one image a request: no batch to halve
+FAULTS = {"state_unchanged": _state_unchanged, "one_byte_altered": _one_byte_altered}
+MESH_FAULTS = {"exchange_left_out": _exchange_left_out}

@@ -2,7 +2,9 @@
 sets a new opacity, drawn from the seed, on one layer (cycling through
 them), then calls `parallel.spatial.composite_spatial(layers, modes,
 opacities, rows_mesh)`.  The document lies on the first card; the mesh
-has the traffic's `mesh_entries` cards."""
+has the traffic's `mesh_entries` cards.
+
+SMALL and FAULTS serve the benchmark's tests, as in spatial_chain.py."""
 
 from __future__ import annotations
 
@@ -10,8 +12,11 @@ import dataclasses
 
 import torch
 
-from portbench import compare, inputs
+from portbench import compare, faults, inputs
 from portbench.reference import composite, strips
+
+# the tests' sizes
+SMALL = {"width": 64, "height": 48}
 
 
 @dataclasses.dataclass
@@ -75,3 +80,19 @@ def check(state: State, kept) -> dict:
         for lo, hi, want in _reference(state, info["opacities"], torch.float32):
             worst = max(worst, compare.max_abs_diff(out[lo:hi], want))
     return {"max_abs_diff": (worst, compare.LIMIT)}
+
+
+def _state_unchanged(monkeypatch):
+    from paintfe_tpu_torch.parallel import spatial
+
+    monkeypatch.setattr(spatial, "composite_spatial", lambda layers, m, o, mesh=None: layers[-1])
+
+
+def _one_byte_altered(monkeypatch):
+    from paintfe_tpu_torch.core import composite as program
+
+    faults.after(monkeypatch, program, "composite_stack_static", faults.flip_one_byte)
+
+
+# one image a request: no batch to halve
+FAULTS = {"state_unchanged": _state_unchanged, "one_byte_altered": _one_byte_altered}

@@ -17,14 +17,15 @@ from typing import Dict, List, Optional, Tuple
 from portbench import stats
 
 PREFIX = "pfe."
-# the layer that the idle time under a span is charged to, by the span's name
+# the layer that the idle time under a span is charged to, by the span's
+# name; a metric may pass a table of its own ({layer: prefixes})
 LAYERS = {"spatial": ("pfe.spatial.",),
           "kernels": ("pfe.kchain.", "pfe.kcomposite.", "pfe.device.")}
 OUTSIDE = "outside"  # no span of these layers open: the caller's own code
 
 
-def layer_of(name: str) -> str:
-    for layer, prefixes in LAYERS.items():
+def layer_of(name: str, layers=LAYERS) -> str:
+    for layer, prefixes in layers.items():
         if name.startswith(prefixes):
             return layer
     return OUTSIDE
@@ -58,17 +59,18 @@ def innermost(host_ops) -> List[Tuple[int, int, str]]:
     return out
 
 
-def idle_by_layer(view) -> Optional[Dict[str, float]]:
+def idle_by_layer(view, layers=LAYERS) -> Optional[Dict[str, float]]:
     """The first card's idle time inside the request spans, split at the
-    `pfe.` spans' boundaries and charged to the layer of the innermost one
-    open (OUTSIDE where none is), in ns summed over the requests; None
+    `pfe.` spans' boundaries and charged to the layer of `layers` that the
+    innermost one open names (OUTSIDE where none is open, or the table
+    names none), in ns summed over the requests; None
     where the trace holds no requests or no device work."""
     if view is None or not view.spans or not view.ops:
         return None
     pieces = innermost(view.host_ops)
     starts = [a for a, _, _ in pieces]
     busy = view.busy(view.devices[0])
-    out = dict.fromkeys((*LAYERS, OUTSIDE), 0.0)
+    out = dict.fromkeys((*layers, OUTSIDE), 0.0)
     for lo, hi in view.spans:
         for g0, g1 in stats.gaps(busy, lo, hi):
             charged = 0.0
@@ -76,17 +78,17 @@ def idle_by_layer(view) -> Optional[Dict[str, float]]:
             while k < len(pieces) and pieces[k][0] < g1:
                 a, b, name = pieces[k]
                 part = max(0.0, min(b, g1) - max(a, g0))
-                out[layer_of(name)] += part
+                out[layer_of(name, layers)] += part
                 charged += part
                 k += 1
             out[OUTSIDE] += (g1 - g0) - charged
     return out
 
 
-def idle_ms_per_edit(run, layer: str) -> Optional[float]:
+def idle_ms_per_edit(run, layer: str, layers=LAYERS) -> Optional[float]:
     """The mean over the window's requests of the idle time charged to
-    `layer`, in ms."""
-    split = idle_by_layer(run.trace)
+    `layer` of `layers`, in ms."""
+    split = idle_by_layer(run.trace, layers)
     return None if split is None else split[layer] / len(run.trace.spans) / 1e6
 
 

@@ -1,8 +1,12 @@
 """The comparison that decides `correct` fails what it has to: the
 control (the reference in bfloat16 in the program's place) and the timed
 path broken underneath in each way a cell can break, each driving the rest
-of a run on the CPU at a small size (the look for a card skipped)."""
+of a run on the CPU at a small size (the look for a card skipped).  The
+small sizes and the faults are the cell's entry's (`SMALL`, `FAULTS`, and
+`MESH_FAULTS` where its mesh has two or more entries), so a new cell needs
+no edit here."""
 
+import json
 import time
 
 import pytest
@@ -10,8 +14,6 @@ import torch
 
 from portbench import harness
 
-SMALL = {"cap16k-chain": {"width": 96, "height": 80},
-         "cap16k-flatten": {"width": 64, "height": 48}}
 SEEDS = (5, 2**31 + 7, 2**33 + 11)
 
 
@@ -19,10 +21,22 @@ def _cells():
     return [w["name"] for w in harness.benchmark()["workloads"]]
 
 
+def _cell(cell):
+    """The cell's BENCHMARK.json entry, traffic, and the entry module it drives."""
+    spec, _, traffic = harness.resolve(harness.benchmark(), cell)
+    return spec, traffic, harness.load_module("entries", traffic["entry"])
+
+
+def _faults(cell):
+    _, traffic, entry = _cell(cell)
+    mesh = getattr(entry, "MESH_FAULTS", {}) if traffic.get("mesh_entries", 1) > 1 else {}
+    return {**entry.FAULTS, **mesh}
+
+
 def _run(cell, seed, control=False):
-    chips = next(w["chips"] for w in harness.benchmark()["workloads"] if w["name"] == cell)
-    return harness.execute(cell, seed, 0.3, False, [torch.device("cpu")] * chips,
-                           t0=time.perf_counter(), control=control, overrides=SMALL[cell])
+    spec, _, entry = _cell(cell)
+    return harness.execute(cell, seed, 0.3, False, [torch.device("cpu")] * spec["chips"],
+                           t0=time.perf_counter(), control=control, overrides=entry.SMALL)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -36,41 +50,19 @@ def test_program_is_correct_and_control_is_not(cell, seed):
     assert bad["checks"]["max_abs_diff"]["value"] >= 1
 
 
-def _flip(out):
-    out = out.clone()
-    out.view(-1)[out.numel() // 3] ^= 1
-    return out
-
-
-def _state_unchanged(monkeypatch, cell):
-    from paintfe_tpu_torch.parallel import spatial
-
-    if cell == "cap16k-flatten":
-        monkeypatch.setattr(spatial, "composite_spatial", lambda layers, m, o, mesh=None: layers[-1])
-    else:
-        monkeypatch.setattr(spatial, "fused_chain_spatial", lambda img, ov, mesh=None, **p: img)
-
-
-def _one_byte_altered(monkeypatch, cell):
-    from paintfe_tpu_torch.core import composite
-    from paintfe_tpu_torch.ops import fused_chain
-
-    if cell == "cap16k-flatten":
-        real = composite.composite_stack_static
-        monkeypatch.setattr(composite, "composite_stack_static", lambda *a, **k: _flip(real(*a, **k)))
-    else:
-        real = fused_chain.fused_chain_kernel
-        monkeypatch.setattr(fused_chain, "fused_chain_kernel", lambda *a, **k: _flip(real(*a, **k)))
-
-
-# the faults a cell of one image on one card can have (no batch to halve,
-# no exchange between cards to leave out)
-FAULTS = {"state_unchanged": _state_unchanged, "one_byte_altered": _one_byte_altered}
-
-
-@pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("cell", _cells())
+@pytest.mark.parametrize("cell, fault", [(c, f) for c in _cells() for f in sorted(_faults(c))],
+                         ids=lambda v: v)
 def test_a_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
-    FAULTS[fault](monkeypatch, cell)
+    _faults(cell)[fault](monkeypatch)
     got = _run(cell, SEEDS[0])
     assert not got["correct"], got["checks"]
+
+
+def test_every_entry_a_traffic_names_has_small_sizes_and_faults():
+    """What the two tests above take from a cell's entry, for every
+    traffic file, in BENCHMARK.json or not yet."""
+    for path in sorted((harness.BENCH / "traffic").glob("*.json")):
+        entry = harness.load_module("entries", json.loads(path.read_text())["entry"])
+        assert isinstance(entry.SMALL, dict) and entry.SMALL, path.name
+        assert entry.FAULTS and all(callable(f) for f in entry.FAULTS.values()), path.name
+        assert all(callable(f) for f in getattr(entry, "MESH_FAULTS", {}).values()), path.name

@@ -49,6 +49,34 @@ def test_idle_is_split_at_span_boundaries_and_charged_to_the_innermost():
     assert got == pytest.approx([2.5, 1.5, 1.5])
 
 
+def test_the_default_table_is_layers():
+    """Passing spans.LAYERS, or nothing, reads what the metrics read."""
+    view = _view(OPS, REQUESTS, HOST)
+    assert spans.idle_by_layer(view, spans.LAYERS) == spans.idle_by_layer(view)
+    assert spans.idle_by_layer(view) == {"spatial": 5 * MS, "kernels": 3 * MS,
+                                         "outside": 3 * MS}
+    run = _run(view)
+    for layer in ("spatial", "kernels", "outside"):
+        assert (spans.idle_ms_per_edit(run, layer, spans.LAYERS)
+                == spans.idle_ms_per_edit(run, layer)
+                == _metric(f"idle_ms_per_edit.{layer}").read(run))
+
+
+def test_a_metric_can_charge_idle_to_a_table_of_its_own():
+    """A `pfe.kmedian.` span: a table that names it takes its idle time;
+    the default table, which does not, charges it outside."""
+    host = HOST + [("pfe.kmedian.launch", 10, 11.5)]
+    view = _view(OPS, REQUESTS, host)
+    own = {"median": ("pfe.kmedian.",), **spans.LAYERS}
+    assert spans.idle_by_layer(view, own) == {"median": 1.5 * MS, "spatial": 5 * MS,
+                                              "kernels": 3 * MS, "outside": 1.5 * MS}
+    assert spans.idle_by_layer(view) == {"spatial": 5 * MS, "kernels": 3 * MS,
+                                         "outside": 3 * MS}
+    run = _run(view)
+    assert spans.idle_ms_per_edit(run, "median", own) == pytest.approx(0.75)
+    assert spans.idle_ms_per_edit(run, "outside") == pytest.approx(1.5)
+
+
 def test_innermost_pieces_follow_the_nesting():
     pieces = spans.innermost([("pfe.a", 0, 10), ("pfe.b", 2, 4), ("x", 3, 9),
                               ("pfe.c", 4, 6), ("pfe.d", 12, 13)])
